@@ -1,0 +1,231 @@
+"""Cross-architecture batched mapspace evaluation.
+
+Scoring one (architecture, workload) pair per call pays per-call launch
+and copy overhead dozens of times over in a DSE round.  Here all pending
+(arch, workload) mapspaces of a round are grouped by their structural
+`BatchSig` — identical level layout / tensor set, the only things the
+fused evaluator needs fixed — and each group is scored by one
+`evaluate_batch_multi` call with per-mapping hardware constants.  Every
+architecture from one Designer template shares one signature, so a whole
+round fuses into one call per workload *shape family*.
+
+Under the `cuda` engine, jobs whose whole mapspace is kernel-eligible (no
+bypass) go instead to the multi-architecture CUDA kernel, one launch per
+BatchSig group (`_kernel_group`).
+
+Jobs carry either a `core.mapspace_array.PackedMapspace` (array-native —
+zero packing happens here) or a `Mapping` list (packed exactly once, then
+treated identically).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..core.backend import (eligibility_mask, goal_scores, resolve_backend,
+                            validity_mask_arrays)
+from ..core.batch_eval import (GOAL_KEY, evaluate_batch_multi, make_static,
+                               note_batch_dispatch, pack, params_of, sig_of)
+from ..core.designer import HardwareDesc
+from ..core.mapping import Mapping
+from ..core.workload import Workload
+from ..device import as_device, to_device
+from ..obs import current_tracer
+
+
+@dataclasses.dataclass
+class MapspaceJob:
+    """One pending mapspace search: pick the goal-best mapping of the
+    job's mapspace (all on the same hw/workload).  Provide either
+    `mappings` (objects) or `packed` (array-native)."""
+    tag: object                       # caller identity, returned with result
+    hw: HardwareDesc
+    workload: Workload
+    mappings: Optional[List[Mapping]] = None
+    packed: Optional["object"] = None           # PackedMapspace
+
+    def n_rows(self) -> int:
+        if self.packed is not None:
+            return len(self.packed)
+        return len(self.mappings or [])
+
+
+@dataclasses.dataclass
+class JobBest:
+    tag: object
+    index: int                        # argmin into the job's mapspace
+    value: float                      # goal score of the winner
+    n_scored: int
+
+
+@dataclasses.dataclass
+class _JobArrays:
+    """Packed view of one job (computed at most once per job)."""
+    st: object                        # HwStatic
+    factors: np.ndarray
+    rank: np.ndarray
+    store: np.ndarray
+    eligible: np.ndarray
+
+
+def _job_arrays(job: MapspaceJob) -> _JobArrays:
+    if job.packed is not None:
+        p = job.packed
+        return _JobArrays(p.static, p.factors, p.rank, p.store, p.eligible)
+    st = make_static(job.hw, job.workload)
+    factors, rank, store = pack(job.mappings)
+    return _JobArrays(st, factors, rank, store,
+                      eligibility_mask(job.mappings))
+
+
+def _chunk(idxs: List[int], sizes: Dict[int, int],
+           max_group: int) -> List[List[int]]:
+    """Split a job-index group so no chunk exceeds `max_group` rows."""
+    chunks: List[List[int]] = [[]]
+    rows = 0
+    for i in idxs:
+        n = sizes[i]
+        if chunks[-1] and rows + n > max_group:
+            chunks.append([])
+            rows = 0
+        chunks[-1].append(i)
+        rows += n
+    return chunks
+
+
+def _group_jobs(jobs: Sequence[MapspaceJob], engine: str):
+    """Group job indices by BatchSig; under the cuda engine, jobs whose
+    rows are all kernel-eligible form separate kernel groups."""
+    groups: Dict[object, List[int]] = {}
+    kernel_groups: Dict[object, List[int]] = {}
+    arrays: List[_JobArrays] = []
+    sizes: Dict[int, int] = {}
+    for i, job in enumerate(jobs):
+        if not job.n_rows():
+            raise ValueError(f"job {job.tag!r}: empty mapspace")
+        a = _job_arrays(job)
+        arrays.append(a)
+        sizes[i] = a.factors.shape[0]
+        if engine == "cuda" and a.eligible.all():
+            kernel_groups.setdefault(sig_of(a.st), []).append(i)
+        else:
+            groups.setdefault(sig_of(a.st), []).append(i)
+    return groups, kernel_groups, arrays, sizes
+
+
+def _assign_best(idxs: List[int], counts: List[int], jobs, scores,
+                 out: List[Optional[JobBest]]) -> None:
+    """Per-job argmin over the group's merged score vector (+inf rows
+    already applied): ties break to the lowest index."""
+    off = 0
+    for i, cnt in zip(idxs, counts):
+        seg = scores[off: off + cnt]
+        best = int(np.argmin(seg))
+        out[i] = JobBest(tag=jobs[i].tag, index=best,
+                         value=float(seg[best]), n_scored=cnt)
+        off += cnt
+
+
+def fused_best(jobs: Sequence[MapspaceJob], goal: str = "edp",
+               max_group: int = 65536, *, device="cuda",
+               backend: str = "auto") -> List[JobBest]:
+    """Goal-best mapping index per job, fusing jobs across architectures.
+
+    Jobs are grouped by BatchSig; each group is scored by one
+    `evaluate_batch_multi` call (split if it would exceed `max_group`
+    rows).  Invalid mappings score +inf and ties break to the lowest
+    index.  Under the `cuda` engine (`auto`), jobs whose whole mapspace is
+    kernel-eligible are scored per BatchSig group by ONE
+    multi-architecture kernel launch instead; the remaining jobs keep the
+    fused oracle path.
+    """
+    engine = resolve_backend(backend)
+    dev = as_device(device)
+    groups, kernel_groups, arrays, sizes = _group_jobs(jobs, engine)
+    out: List[Optional[JobBest]] = [None] * len(jobs)
+
+    tr = current_tracer()
+    for todo, label, score in ((kernel_groups, "fused.kernel-group",
+                                _kernel_group),
+                               (groups, "fused.torch-group", _eval_group)):
+        for sig, idxs in todo.items():
+            for chunk in _chunk(idxs, sizes, max_group):
+                rows = sum(sizes[i] for i in chunk)
+                with tr.span(label, jobs=len(chunk), rows=rows):
+                    score(sig, chunk, jobs, arrays, goal, out, dev)
+                tr.metrics.histogram("fused.group_rows").observe(rows)
+                tr.metrics.histogram("fused.group_jobs").observe(len(chunk))
+    return [b for b in out if b is not None]
+
+
+def _kernel_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
+                  goal: str, out: List[Optional[JobBest]], dev) -> None:
+    """Score one BatchSig group of kernel-eligible jobs with one
+    multi-architecture kernel launch.  Validity is closed-form per job
+    (the kernel emits only cycles/energy)."""
+    from ..kernels.mapspace_eval.ops import mapspace_eval_multi
+    counts = [arrays[i].factors.shape[0] for i in idxs]
+    cycles, energy = mapspace_eval_multi(
+        [(arrays[i].st, arrays[i].factors, arrays[i].rank) for i in idxs],
+        device=dev)
+    scores = goal_scores(cycles, energy, goal)
+    with current_tracer().span("fused.validity", rows=sum(counts)):
+        valid = np.concatenate([validity_mask_arrays(arrays[i].st,
+                                                     arrays[i].factors,
+                                                     arrays[i].store)
+                                for i in idxs])
+    _assign_best(idxs, counts, jobs, np.where(valid, scores, np.inf), out)
+
+
+def _eval_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
+                goal: str, out: List[Optional[JobBest]], dev) -> None:
+    """Score one BatchSig group with one `evaluate_batch_multi` call."""
+    counts = [arrays[i].factors.shape[0] for i in idxs]
+    cat = lambda name: np.concatenate([getattr(arrays[i], name)
+                                       for i in idxs])
+    per_job = [params_of(arrays[i].st, n) for i, n in zip(idxs, counts)]
+    params = {name: to_device(np.concatenate([p[name] for p in per_job]),
+                              dev) for name in per_job[0]}
+    note_batch_dispatch(sum(counts))
+    res = evaluate_batch_multi(sig, params, to_device(cat("factors"), dev),
+                               to_device(cat("rank"), dev),
+                               to_device(cat("store"), dev))
+    scores = res[GOAL_KEY[goal]].cpu().numpy()
+    valid = res["valid"].cpu().numpy()
+    _assign_best(idxs, counts, jobs, np.where(valid, scores, np.inf), out)
+
+
+def per_arch_best(jobs: Sequence[MapspaceJob], goal: str = "edp", *,
+                  device="cuda", backend: str = "auto") -> List[JobBest]:
+    """One `best_index` (or, below 64 rows, a scalar loop over the
+    evaluator) per job — the explorer's per-workload selection."""
+    from ..core.backend import best_index
+    from ..core.evaluator import evaluate_mapping
+    from ..core.explorer import GOALS
+
+    resolve_backend(backend)
+    dev = as_device(device)
+    tr = current_tracer()
+    score = GOALS[goal]
+    out: List[JobBest] = []
+    for job in jobs:
+        with tr.span("per-arch.job", rows=job.n_rows()):
+            batch = job.packed if job.packed is not None else job.mappings
+            mat = (job.packed.materialize if job.packed is not None
+                   else job.mappings.__getitem__)
+            if job.n_rows() >= 64:
+                best_i = best_index(batch, goal, backend, device=dev)
+                best_v = score(evaluate_mapping(mat(best_i)))
+            else:
+                best_v = math.inf
+                best_i = 0
+                for i in range(job.n_rows()):
+                    v = score(evaluate_mapping(mat(i)))
+                    if v < best_v:
+                        best_i, best_v = i, v
+            out.append(JobBest(tag=job.tag, index=best_i, value=best_v,
+                               n_scored=job.n_rows()))
+    return out

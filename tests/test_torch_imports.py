@@ -1,0 +1,106 @@
+"""Guards on the PyTorch/CUDA port (src/repro_torch) and chip_smoke.py:
+
+  * no file imports `jax` or the JAX package `repro` (AST scan);
+  * importing the port and every slice module leaves both out of
+    `sys.modules` (fresh interpreter);
+  * on a host without a card, entry points called without device="cpu"
+    raise instead of running on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+SLICE_MODULES = [
+    "repro_torch", "repro_torch.convert", "repro_torch.device",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+    "repro_torch.core", "repro_torch.core.workload",
+    "repro_torch.core.designer", "repro_torch.core.mapping",
+    "repro_torch.core.mapper", "repro_torch.core.task_analyst",
+    "repro_torch.core.evaluator", "repro_torch.core.batch_eval",
+    "repro_torch.core.mapspace_array", "repro_torch.core.backend",
+    "repro_torch.core.explorer", "repro_torch.kernels",
+    "repro_torch.kernels.mapspace_eval",
+    "repro_torch.kernels.mapspace_eval.kernel",
+    "repro_torch.kernels.mapspace_eval.ref",
+    "repro_torch.kernels.mapspace_eval.ops",
+    "repro_torch.search", "repro_torch.search.batch_frontier",
+]
+
+
+def _imported_roots(path: Path):
+    """Top-level package of every absolute import in `path`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_slice_modules_load_without_jax_or_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_every_port_module_is_listed():
+    on_disk = {".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+               .removesuffix(".__init__") for p in PORT.rglob("*.py")}
+    assert on_disk == set(SLICE_MODULES)
+
+
+def _entry_points():
+    import repro_torch.core as tc
+    from repro_torch.search import MapspaceJob, fused_best
+    hw = tc.make_spatial_arch(num_pes=64, rf_words=128,
+                              gbuf_words=16 * 1024, bits=16)
+    wl = tc.analyze(tc.alexnet_cifar(batch_size=4)).intra[2]
+    pm = tc.build_packed_mapspace(wl, hw, tc.MapperConfig(max_mappings=80))
+    task = tc.alexnet_cifar(batch_size=4)
+    return {
+        "explore": lambda **kw: tc.explore(
+            task, [hw], cfg=tc.MapperConfig(max_mappings=80), **kw),
+        "score_mapspace": lambda **kw: tc.score_mapspace(pm, **kw),
+        "best_index": lambda **kw: tc.best_index(pm, **kw),
+        "fused_best": lambda **kw: fused_best(
+            [MapspaceJob(tag=0, hw=hw, workload=wl, packed=pm)], **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["explore", "score_mapspace", "best_index",
+                                  "fused_best"])
+def test_no_silent_cpu_fallback(name):
+    fn = _entry_points()[name]
+    if torch.cuda.is_available():
+        pytest.skip("host has a CUDA device: the default runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")            # the explicit host run works
