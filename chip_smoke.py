@@ -26,19 +26,37 @@ catches its own failure.
               workloads, no-bypass mapspaces, traced (pack, copies,
               kernel, validity); the multi-architecture kernel must
               launch, and the winners must equal the oracle's
+  6. flash    the flash-attention kernel against its plain version on the
+              card: the serving prefill's shape (B=4, S=2048, 9 query on 3
+              KV heads of 64, bf16), a ragged float32 shape (S=1000,
+              D=128) and one small case each at D=80 and D=96; times as
+              in phase 3, beside the bound and one PyTorch call computing
+              the same function (`scaled_dot_product_attention`, timed
+              here only, never called by the port)
+  7. serve    smollm-135m at full width (bf16, random weights from a seed):
+              (a) the prefill `forward(tokens [4, 2048], logits_mode=
+              "last")` with the kernel installed must launch it once per
+              layer (30) and match the plain-attention forward; timed,
+              with the device's busy share; (b) `ServeEngine(batch=4,
+              max_len=256)` answers 8 requests (prompts of 16-128 tokens,
+              32 new tokens each), and teacher-forced `decode_step` on a
+              128-token prompt matches the prefill's last logits
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is `{"ok": true, "device": {...}}`.
+Phase 2 builds both kernel libraries at once (one nvcc each).  The line
+before the last is a JSON object with one entry per kernel; the last line
+is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -67,6 +85,31 @@ CHECK_ARCH = "pe256_rf256_gb131072"     # the issue's intra[2] architecture
 MAX_MAPPINGS = 20000
 SOURCE = "src/repro_torch/kernels/mapspace_eval/csrc/mapspace_eval.cu"
 
+# Flash attention and serving.  Peaks for the bound: bf16 on the tensor
+# cores, float32 outside them (NVIDIA data sheet, H100 SXM, dense).
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: FP32_FLOP_PER_S}
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/" \
+    "flash_attention.cu"
+# (b, s, h, hkv, d, dtype): the serving prefill's shape first
+FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16),
+               (1, 1000, 8, 8, 128, torch.float32),
+               (2, 300, 4, 2, 80, torch.bfloat16),
+               (1, 257, 6, 2, 96, torch.float32)]
+# kernel against plain version, as tests/test_kernels.py states them:
+# float32 sums in another order; bf16 outputs one unit in the last place
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+SERVE_ARCH = "smollm-135m"
+SEED = 0
+PREFILL_B, PREFILL_S = 4, 2048
+ENGINE_BATCH, ENGINE_MAX_LEN, ENGINE_REQUESTS = 4, 256, 8
+PROMPT_LENS, NEW_TOKENS, TEACHER_LEN = (16, 128), 32, 128
+# Logits of two bf16 forwards that round at different points (the fused
+# kernel's bf16 output against the plain path's, 30 residual blocks
+# deep), compared in float32: max |a - b| <= LOGIT_TOL * max |b|.  bf16
+# keeps 8 significant bits (2**-8 = 0.4% a rounding); 5% of the logits'
+# range is about a dozen such steps.
+LOGIT_TOL = 5e-2
+
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -87,14 +130,30 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
     t0 = time.perf_counter()
-    lib = kernel.build()
+    libs = build_all([kernel.LIBRARY, flash.LIBRARY])
     dt = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    say("build", f"{lib.relative_to(ROOT)} in {dt:.2f} s; "
-        + " | ".join(ptxas))
+    for lib in libs:
+        ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        say("build", f"{lib.relative_to(ROOT)}; " + " | ".join(ptxas))
+    say("build", f"{len(libs)} libraries in {dt:.2f} s (built at once)")
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.mapspace_eval import kernel
+    return {**kernel.LAUNCHES, **flash.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.mapspace_eval import kernel
+    kernel.reset_launches()
+    flash.reset_launches()
 
 
 def device_times_ms(fn, n: int = N_TIMED, cold: bool = False):
@@ -129,10 +188,28 @@ def device_times_ms(fn, n: int = N_TIMED, cold: bool = False):
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, n: int = N_TIMED) -> float:
+    """Device time of one `fn()` when `n` calls run back to back: one
+    CUDA event pair around all of them, enqueued behind a spin kernel."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(int(2e8))                          # ~0.1 s
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def device_busy(fn):
     """Run `fn()` under torch.profiler (CUPTI) -> (wall s, device busy s,
-    device activities, their summed s): busy is the union of the kernel
-    and copy intervals, so overlapping work is not counted twice."""
+    device activities, their summed s, {activity name: (summed s,
+    count)}): busy is the union of the kernel and copy intervals, so
+    overlapping work is not counted twice."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -141,14 +218,28 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for s, e in spans:                                  # microseconds
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    return wall, busy / 1e6, len(spans), sum(e - s for s, e in spans) / 1e6
+    by_name = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + (e.time_range.end - e.time_range.start) / 1e6,
+                           n + 1)
+    return (wall, busy / 1e6, len(spans),
+            sum(e - s for s, e in spans) / 1e6, by_name)
+
+
+def top_activities(by_name: dict, n: int = 5) -> str:
+    """The `n` device activities that took longest in all, as 'ms (count)
+    name' entries."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return "; ".join(f"{t * 1e3:.2f} ms ({k}x) {name[:70]}"
+                     for name, (t, k) in top)
 
 
 def bound_ms(tensors, n_rows: int):
@@ -249,16 +340,15 @@ def _winners(result):
 def explore_phase(task, archs, dev):
     """Algorithm 1 on the card, kernel engine then oracle -> launches."""
     from repro_torch.core import MapperConfig, explore
-    from repro_torch.kernels.mapspace_eval import kernel
     from repro_torch.obs import Tracer, activate
     cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0)
     tr = Tracer()
-    kernel.reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     with activate(tr):
         out = explore(task, archs, goal="edp", cfg=cfg, device=dev)
     wall = time.perf_counter() - t0
-    launches = dict(kernel.LAUNCHES)
+    launches = launch_counts()
     if launches["single"] == 0:
         raise RuntimeError("explore launched no single-architecture kernel")
     sp = tr.span_times()
@@ -287,7 +377,7 @@ def explore_phase(task, archs, dev):
             or _winners(out) != _winners(ref):
         raise RuntimeError("explore winners differ between the kernel "
                            "engine and the oracle")
-    wall, busy, n_ops, _ = device_busy(lambda: explore(
+    wall, busy, n_ops, _, _ = device_busy(lambda: explore(
         task, archs[:2], goal="edp", cfg=cfg, device=dev))
     say("explore", f"profiled run over {archs[0].name}, {archs[1].name}: "
         f"{wall:.2f} s wall, device busy {busy:.3f} s "
@@ -303,7 +393,6 @@ def explore_phase(task, archs, dev):
 def fused_phase(workloads, archs, dev):
     """`fused_best` over every (arch, distinct workload) pair -> launches."""
     from repro_torch.core import MapperConfig, build_packed_mapspace
-    from repro_torch.kernels.mapspace_eval import kernel
     from repro_torch.obs import Tracer, activate
     from repro_torch.search import MapspaceJob, fused_best
     cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0,
@@ -315,12 +404,12 @@ def fused_phase(workloads, archs, dev):
     build_s = time.perf_counter() - t0
     rows = sum(j.n_rows() for j in jobs)
     tr = Tracer()
-    kernel.reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     with activate(tr):
         out = fused_best(jobs, "edp", device=dev)
     wall = time.perf_counter() - t0
-    launches = dict(kernel.LAUNCHES)
+    launches = launch_counts()
     if launches["multi"] == 0:
         raise RuntimeError("fused_best launched no multi-architecture "
                            "kernel")
@@ -345,6 +434,202 @@ def fused_phase(workloads, archs, dev):
     return launches["multi"]
 
 
+def flash_bound_ms(b, s, h, hkv, d, dtype, causal=True):
+    """The least time the card could take for causal attention on these
+    shapes: 2 products x 2 ops x D per (row, visible key) pair, S(S+1)/2
+    pairs per head, at the input type's peak; or q, k, v read once and o
+    written once at HBM bandwidth, whichever is larger."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_ops = 4 * b * h * d * pairs / PEAK_FLOP_PER_S[dtype] * 1e3
+    esize = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = 2 * b * s * (h + hkv) * d * esize / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _qkv(b, s, h, hkv, d, dtype, dev, seed=SEED):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, dtype) for shape in ((b, s, h, d), (b, s, hkv, d),
+                                          (b, s, hkv, d))]
+
+
+def flash_phase(dev, cases=FLASH_CASES):
+    """The kernel against `ref.py` on the card -> its record (times at
+    the first case, the serving prefill's shape)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain version: fp32
+    record = None
+    for b, s, h, hkv, d, dtype in cases:
+        q, k, v = _qkv(b, s, h, hkv, d, dtype, dev)
+        run = lambda: ops.flash_attention(q, k, v)
+        plain = lambda: ref.flash_attention_ref(q, k, v)
+        out, want = run(), plain()
+        torch.cuda.synchronize()
+        if out.shape != q.shape or out.dtype != dtype \
+                or not torch.isfinite(out).all():
+            raise RuntimeError(f"flash {tuple(q.shape)}: bad output")
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        err = float((out.float() - want.float()).abs().max())
+        shape = f"B={b} S={s} H={h} Hkv={hkv} D={d} {str(dtype)[6:]}"
+        if record is not None:
+            say("flash", f"{shape}: max abs err {err:.3g} (tol {tol:g})")
+            continue
+        # SDPA on the [B,H,S,D] views of the same tensors, GQA included
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        ms = device_times_ms(run, cold=True)
+        warm_ms = device_times_ms(run)
+        b2b_ms = back_to_back_ms(run)
+        plain_ms = device_times_ms(plain, cold=True)
+        plain_warm_ms = device_times_ms(plain)
+        library_ms = device_times_ms(library, cold=True)
+        b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype)
+        cupti = [device_busy(lambda: [f() for _ in range(N_TIMED)])
+                 for f in (run, plain, library)]
+        prof = [c[3] / N_TIMED * 1e3 for c in cupti]
+        kern_s, kern_n = [v for name, v in cupti[0][4].items()
+                          if "flash_fwd_kernel" in name][0]
+        kern_ms = kern_s / kern_n * 1e3
+        say("flash", f"{shape}: max abs err {err:.3g} (tol {tol:g}; "
+            f"SDPA's {lib_err:.3g}); events, cold L2: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; warm L2: "
+            f"kernel {warm_ms:.4f} ms, plain {plain_warm_ms:.4f} ms; "
+            f"{N_TIMED} kernel calls back to back: {b2b_ms:.4f} ms a call; "
+            f"profiler, warm: kernel {kern_ms:.4f} ms a launch over "
+            f"{kern_n} launches recorded; device time per call: kernel "
+            f"{prof[0]:.4f} "
+            f"ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}), kernel at "
+            f"{100 * b_ms / ms:.1f}% of it (cold)")
+        record = dict(
+            name="flash_attention", route="cuda", source=FLASH_SOURCE,
+            replaces="src/repro/kernels/flash_attention/kernel.py:27",
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
+            back_to_back_ms=b2b_ms, profiler_ms=kern_ms, shape=shape)
+    return record
+
+
+def _logits_close(what: str, got, want) -> float:
+    """max |got - want| in float32, held to LOGIT_TOL of want's range."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"{what}: bad logits {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= LOGIT_TOL * scale:
+        raise RuntimeError(f"{what}: max abs err {err:.4g} > "
+                           f"{LOGIT_TOL} x {scale:.4g}")
+    return err
+
+
+def serve_phase(dev, cfg=None):
+    """smollm-135m at full width: the prefill through the flash kernel,
+    then the engine -> the kernel's launches in one prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import (attention, decode_step, forward,
+                                    init_cache, init_model)
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import Request, ServeEngine
+    cfg = cfg or get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    torch.cuda.synchronize()
+    say("serve", f"{cfg.name}: {n_params / 1e6:.1f}M params "
+        f"({cfg.param_dtype}), {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}; init {time.perf_counter() - t0:.2f} s")
+    prefill = lambda: forward(model, cfg, {"tokens": tokens},
+                              logits_mode="last")
+    with torch.no_grad():
+        ops.install()
+        try:
+            reset_launch_counts()
+            fused = prefill()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            if launches["flash"] != cfg.n_layers or launches["single"] \
+                    or launches["multi"]:
+                raise RuntimeError(f"prefill launches {launches}, want "
+                                   f"flash={cfg.n_layers} and no other")
+            fused_ms = device_times_ms(prefill, n=5)
+            wall, busy, n_ops, _, by_name = device_busy(prefill)
+        finally:
+            attention.set_flash_impl(None)
+        plain = prefill()
+        plain_ms = device_times_ms(prefill, n=5)
+    err = _logits_close("prefill", fused, plain)
+    say("serve", f"(a) prefill [{PREFILL_B}, {PREFILL_S}] -> logits "
+        f"{tuple(fused.shape)}: flash launches {launches['flash']}; "
+        f"{fused_ms:.2f} ms with the kernel, {plain_ms:.2f} ms with plain "
+        f"attention (events); against plain max abs err {err:.4g} "
+        f"(logits up to {float(plain.float().abs().max()):.4g}); "
+        f"profiled: {wall * 1e3:.2f} ms wall, device busy "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) in {n_ops} ops; "
+        f"{PREFILL_B * PREFILL_S / fused_ms:.0f} prompt tokens/ms")
+    say("serve", "(a) prefill's longest device activities: "
+        + top_activities(by_name))
+
+    tr = Tracer()
+    engine = ServeEngine(cfg, model, batch=ENGINE_BATCH,
+                         max_len=ENGINE_MAX_LEN, tracer=tr, device=dev)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, ENGINE_REQUESTS)
+    for rid, n in enumerate(lens):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, int(n)).astype(np.int32),
+            max_new_tokens=NEW_TOKENS))
+    t0 = time.perf_counter()
+    ticks = engine.run_until_drained()
+    wall = time.perf_counter() - t0
+    out = [len(r.out_tokens) for r in engine.done.values()]
+    if sorted(engine.done) != list(range(ENGINE_REQUESTS)) \
+            or out != [NEW_TOKENS + 1] * ENGINE_REQUESTS:
+        raise RuntimeError(f"engine finished {sorted(engine.done)} with "
+                           f"{out} tokens")
+    sp = tr.span_times()
+    decoded = tr.metrics.snapshot()["counters"]["serve.tokens_decoded"]
+    toks = torch.zeros(ENGINE_BATCH, dtype=torch.int32, device=dev)
+    wall_1, busy_1, n_ops_1, _, by_name = device_busy(
+        lambda: decode_step(model, cfg, engine.cache, toks, 0))
+    say("serve", f"(b) engine: {ENGINE_REQUESTS} requests (prompts "
+        f"{sorted(lens.tolist())}), {sum(out)} tokens out ({decoded:.0f} "
+        f"from decode ticks), {ticks} ticks, {wall:.2f} s wall, "
+        f"{sum(out) / wall:.1f} tokens/s; token-by-token prefill "
+        f"{sp.get('serve.prefill', 0):.2f} s ({int(lens.sum())} steps), "
+        f"decode ticks {sp.get('serve.decode', 0):.2f} s")
+    say("serve", f"(b) one profiled decode_step: {wall_1 * 1e3:.2f} ms wall, "
+        f"device busy {busy_1 * 1e3:.3f} ms ({100 * busy_1 / wall_1:.1f}%) "
+        f"in {n_ops_1} ops; longest: " + top_activities(by_name, 3))
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, TEACHER_LEN))
+                              ).to(dev)
+    cache = init_cache(cfg, 1, TEACHER_LEN, device=dev)
+    for pos in range(TEACHER_LEN):
+        step, cache = decode_step(model, cfg, cache, prompt[:, pos], pos)
+    with torch.no_grad():
+        ops.install()
+        try:
+            last = forward(model, cfg, {"tokens": prompt},
+                           logits_mode="last")[:, 0]
+        finally:
+            attention.set_flash_impl(None)
+    err = _logits_close("decode vs prefill", step, last)
+    say("serve", f"teacher-forced decode_step over {TEACHER_LEN} tokens "
+        f"against the flash prefill's last logits: max abs err {err:.4g}")
+    return launches["flash"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -366,6 +651,8 @@ def main() -> int:
         task, archs, dev)
     records["mapspace_eval_multi"]["launches"] = fused_phase(
         distinct, archs, dev)
+    records["flash_attention"] = flash_phase(dev)
+    records["flash_attention"]["launches"] = serve_phase(dev)
     say("done", f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,8 @@
     mem_par [B, Lm, 3], hw_row [B, 4]) so rows of any architectures
     sharing a `BatchSig` fuse into one launch (`_score_kernel_multi`).
 
-The source is compiled by `nvcc` at first use into `build/repro_torch_kernels/`
-at the repository root (one library for every architecture; the file name
-carries a hash of the source and flags) and loaded with `ctypes`.  Each
+The source is compiled by `nvcc` at first use (`kernels/build.py`; one
+library for every architecture) and loaded with `ctypes`.  Each
 wrapper launches on PyTorch's current stream and counts its launches in
 `LAUNCHES`.  A wrapper given CPU tensors computes the plain PyTorch version
 (`ref.py`) instead — chosen by the tensors' device only; for CUDA tensors it
@@ -21,21 +20,15 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
 from . import ref
+from ..build import CudaLibrary
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mapspace_eval.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / \
-    "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -45,58 +38,27 @@ MAX_MEM = 3
 #: kernel launches per variant since import (or the last `reset_launches`)
 LAUNCHES: Dict[str, int] = {"single": 0, "multi": 0}
 
-_LIB: Optional[ctypes.CDLL] = None
-_LOCK = threading.Lock()
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
-def library_path() -> Path:
-    """Where the build for the current source and flags lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libmapspace_eval-{tag}.so"
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mapspace_eval_single.argtypes = [p] * 15 + [i, i, p]
+    lib.mapspace_eval_single.restype = i
+    lib.mapspace_eval_multi.argtypes = [p] * 17 + [i, i, p]
+    lib.mapspace_eval_multi.restype = i
+    lib.mapspace_eval_hw_floats.restype = i
+    if lib.mapspace_eval_hw_floats() != 6 * MAX_MEM + 6:
+        raise RuntimeError("HwConst layout differs from the host's")
 
 
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    -> its path.  The compiler's register/spill report is kept beside it
-    (`.log`)."""
-    out = library_path()
-    if out.exists():
-        return out
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.mapspace_eval_single.argtypes = [p] * 15 + [i, i, p]
-            lib.mapspace_eval_single.restype = i
-            lib.mapspace_eval_multi.argtypes = [p] * 17 + [i, i, p]
-            lib.mapspace_eval_multi.restype = i
-            lib.mapspace_eval_hw_floats.restype = i
-            if lib.mapspace_eval_hw_floats() != 6 * MAX_MEM + 6:
-                raise RuntimeError("HwConst layout differs from the host's")
-            _LIB = lib
-    return _LIB
+LIBRARY = CudaLibrary(
+    "mapspace_eval",
+    Path(__file__).resolve().parent / "csrc" / "mapspace_eval.cu",
+    NVCC_FLAGS, _bind)
 
 
 def hw_consts(static: dict) -> np.ndarray:
@@ -171,7 +133,7 @@ def mapspace_eval_fwd(bounds, cum, rel_i, rel_w, rel_o, tw_u, tw_p, fresh,
     if dev.type != "cuda":
         raise ValueError(f"no mapspace_eval kernel for device {dev}")
     hc = hw_consts(static)
-    out = _launch(_lib().mapspace_eval_single, arrays, [hc.ctypes.data],
+    out = _launch(LIBRARY.load().mapspace_eval_single, arrays, [hc.ctypes.data],
                   b, n_mem, dev)
     if b:
         LAUNCHES["single"] += 1
@@ -191,7 +153,7 @@ def mapspace_eval_multi_fwd(bounds, cum, rel_i, rel_w, rel_o, tw_u, tw_p,
         return ref.score_multi_ref(*arrays)
     if dev.type != "cuda":
         raise ValueError(f"no mapspace_eval kernel for device {dev}")
-    out = _launch(_lib().mapspace_eval_multi, arrays, [], b, n_mem, dev)
+    out = _launch(LIBRARY.load().mapspace_eval_multi, arrays, [], b, n_mem, dev)
     if b:
         LAUNCHES["multi"] += 1
     return out

@@ -32,6 +32,18 @@ SLICE_MODULES = [
     "repro_torch.kernels.mapspace_eval.ref",
     "repro_torch.kernels.mapspace_eval.ops",
     "repro_torch.search", "repro_torch.search.batch_frontier",
+    "repro_torch.kernels.build",
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.registry", "repro_torch.configs.shapes",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.moe", "repro_torch.models.attention",
+    "repro_torch.models.model",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.serve", "repro_torch.serve.engine",
+    "repro_torch.launch", "repro_torch.launch.serve",
 ]
 
 
@@ -85,7 +97,17 @@ def _entry_points():
     wl = tc.analyze(tc.alexnet_cifar(batch_size=4)).intra[2]
     pm = tc.build_packed_mapspace(wl, hw, tc.MapperConfig(max_mappings=80))
     task = tc.alexnet_cifar(batch_size=4)
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import main_lm
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine
+    lm = reduced_config("smollm-135m")
+    serve_args = ["--requests", "2", "--max-new-tokens", "2"]
     return {
+        "init_model": lambda **kw: init_model(lm, **kw),
+        "ServeEngine": lambda **kw: ServeEngine(lm, None, **kw),
+        "main_lm": lambda **kw: main_lm(
+            serve_args + [a for k, v in kw.items() for a in (f"--{k}", v)]),
         "explore": lambda **kw: tc.explore(
             task, [hw], cfg=tc.MapperConfig(max_mappings=80), **kw),
         "score_mapspace": lambda **kw: tc.score_mapspace(pm, **kw),
@@ -96,7 +118,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["explore", "score_mapspace", "best_index",
-                                  "fused_best"])
+                                  "fused_best", "init_model", "ServeEngine",
+                                  "main_lm"])
 def test_no_silent_cpu_fallback(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
