@@ -41,15 +41,39 @@ catches its own failure.
               max_len=256)` answers 8 requests (prompts of 16-128 tokens,
               32 new tokens each), and teacher-forced `decode_step` on a
               128-token prompt matches the prefill's last logits
+  8. ssd      the SSD-scan kernel against its plain version
+              (`ssd_chunk_scan_streaming`, TF32 off) on the card, at 2e-4:
+              mamba2-2.7b's prefill layer (B=4, T=2048, 80 heads of 64,
+              N=128, chunk 128), zamba2-2.7b's layer (B=1, N=64), the JAX
+              kernel test's four shapes and strided views cut from a
+              conv-output-shaped tensor; each timed as in phase 6, beside
+              the bound (`ssd_bound_ms`) and the plain version's time
+  9. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
+              weights from a CUDA generator seeded with 0): (a) the prefill
+              `forward(tokens [4, 2048], logits_mode="last")` must launch
+              the SSD kernel 64 times and nothing else; timed, with the
+              device's busy share; (b) `ServeEngine(batch=4, max_len=256)`
+              answers 8 requests (prompts of 16-64 tokens, 16 new tokens
+              each); (c) with the weights cast to float32 (bf16 rounding
+              through 64 random layers is amplified past any useful
+              tolerance), teacher-forced `decode_step` (the pure
+              recurrence) over 128 tokens matches the kernel prefill's
+              last logits
+ 10. hybrid   zamba2-2.7b at full width and depth (54 Mamba2 layers, the
+              shared GQA block after every 6, window 4096): the prefill
+              [1, 2048] with the flash hook installed launches the SSD
+              kernel 54 times and the flash kernel never (the window keeps
+              it off, as in the reference's `sdpa`); decode over one chunk
+              matches the prefill in float32, as in phase 9
 
-Phase 2 builds both kernel libraries at once (one nvcc each).  The line
-before the last is a JSON object with one entry per kernel; the last line
-is `{"ok": true, "device": {...}}`.
+Phase 2 builds the three kernel libraries at once (one nvcc each).  The
+line before the last is a JSON object with one entry per kernel; the last
+line is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -110,6 +134,40 @@ PROMPT_LENS, NEW_TOKENS, TEACHER_LEN = (16, 128), 32, 128
 # range is about a dozen such steps.
 LOGIT_TOL = 5e-2
 
+# SSD scan and the Mamba2 models.
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+# (b, t, h, p, g, n, chunk, what): mamba2-2.7b's prefill layer first; the
+# model's A (-1 .. -16) at the models' shapes, the JAX test's elsewhere
+SSD_CASES = [(4, 2048, 80, 64, 1, 128, 128, "mamba2-2.7b prefill layer"),
+             (1, 2048, 80, 64, 1, 64, 128, "zamba2-2.7b layer"),
+             (2, 128, 4, 8, 2, 16, 32, "SSD_SHAPES[0]"),
+             (1, 256, 2, 64, 1, 128, 128, "SSD_SHAPES[1]"),
+             (2, 64, 4, 16, 4, 32, 16, "SSD_SHAPES[2]"),
+             (1, 128, 8, 32, 8, 64, 64, "SSD_SHAPES[3]"),
+             (2, 1024, 80, 64, 1, 128, 128, "strided views"),
+             (2, 1024, 80, 64, 1, 128, 128, "unit-scale strided views")]
+# kernel against plain version, the JAX kernel test's tolerance: float32
+# sums in another order.  Every case is also held to it against the plain
+# version in float64; "unit-scale strided views" (B and C not scaled, so
+# |C B^T| ~ 11 and y up to ~300, with the model's A down to -16) only
+# against float64: there the float32 plain version itself misses the
+# float64 result by more than the tolerance (PERF.md, PR 13), so its
+# difference from the kernel measures the plain version's rounding.
+SSD_TOL = 2e-4
+SSD_FLOAT64_ONLY = ("unit-scale strided views",)
+SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
+# Decode against prefill for the Mamba2 models runs in float32 (the same
+# weights, cast): with random weights their bf16 rounding is amplified
+# layer over layer, so that mamba2-2.7b's bf16 prefill lies ~40% of the
+# logits' range from its float32 prefill through the same kernel (phase 9
+# (c) prints it; PERF.md, PR 13), and no bf16 comparison through the full
+# depth can check a kernel.  In float32 the chunked scan and the recurrence
+# sum in other orders and are amplified alike: ~1e-4 of the range
+# measured, 2e-3 allowed; a wrong kernel is off by the range itself.
+LOGIT_TOL_F32 = 2e-3
+SSM_ENGINE_REQUESTS, SSM_PROMPT_LENS, SSM_NEW_TOKENS = 8, (16, 64), 16
+HYBRID_PREFILL_B = 1
+
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -133,8 +191,9 @@ def build_phase() -> None:
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
-    libs = build_all([kernel.LIBRARY, flash.LIBRARY])
+    libs = build_all([kernel.LIBRARY, flash.LIBRARY, ssd.LIBRARY])
     dt = time.perf_counter() - t0
     for lib in libs:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -146,14 +205,17 @@ def build_phase() -> None:
 def launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
-    return {**kernel.LAUNCHES, **flash.LAUNCHES}
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    return {**kernel.LAUNCHES, **flash.LAUNCHES, **ssd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     kernel.reset_launches()
     flash.reset_launches()
+    ssd.reset_launches()
 
 
 def device_times_ms(fn, n: int = N_TIMED, cold: bool = False):
@@ -516,16 +578,16 @@ def flash_phase(dev, cases=FLASH_CASES):
     return record
 
 
-def _logits_close(what: str, got, want) -> float:
-    """max |got - want| in float32, held to LOGIT_TOL of want's range."""
+def _logits_close(what: str, got, want, tol: float = LOGIT_TOL) -> float:
+    """max |got - want| in float32, held to `tol` of want's range."""
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise RuntimeError(f"{what}: bad logits {tuple(got.shape)}")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    if not err <= LOGIT_TOL * scale:
+    if not err <= tol * scale:
         raise RuntimeError(f"{what}: max abs err {err:.4g} > "
-                           f"{LOGIT_TOL} x {scale:.4g}")
+                           f"{tol} x {scale:.4g}")
     return err
 
 
@@ -560,7 +622,7 @@ def serve_phase(dev, cfg=None):
             torch.cuda.synchronize()
             launches = launch_counts()
             if launches["flash"] != cfg.n_layers or launches["single"] \
-                    or launches["multi"]:
+                    or launches["multi"] or launches["ssd"]:
                 raise RuntimeError(f"prefill launches {launches}, want "
                                    f"flash={cfg.n_layers} and no other")
             fused_ms = device_times_ms(prefill, n=5)
@@ -630,6 +692,236 @@ def serve_phase(dev, cfg=None):
     return launches["flash"]
 
 
+def ssd_bound_ms(b, t, h, p, g, n, q):
+    """The least time the card could take for the SSD scan on these
+    shapes: the larger of its operations at the float32 peak outside the
+    tensor cores and its bytes at HBM bandwidth.  Operations, 2 a
+    multiply-add, with C B^T formed once per (batch row, group, chunk) and
+    only the causal half (Q(Q+1)/2 pairs) of the two Q x Q products
+    counted: C B^T (N deep) per group, its weights times X (P wide), C
+    times the state and the state update (Q x N x P each) per head.
+    Bytes: x, dt, a, B and C read once and y written once, in float32."""
+    nc, pairs = t // q, q * (q + 1) // 2
+    flops = 2 * b * nc * (g * pairs * n + h * pairs * p + 2 * h * q * n * p)
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    nbytes = 4 * (2 * b * t * h * p + 2 * b * t * g * n + b * t * h + h)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _ssd_inputs(b, t, h, p, g, n, dev, what, seed=SEED):
+    """(xh, dt, a, bh, ch) on the card: softplus dt, B/C scaled by 0.3 and
+    a = -exp(0.5 z) as the JAX kernel test draws them, or the model's
+    a = -(1 .. 16) at the models' shapes; for the "strided views" cases,
+    xh, B and C are slices of one [B, T, H*P + 2*G*N] tensor, as the model
+    passes them (its B/C columns scaled by 0.3 unless "unit-scale")."""
+    rng = np.random.default_rng(seed)
+    z = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        dev)
+    dt = torch.nn.functional.softplus(z(b, t, h))
+    a = -torch.exp(z(h) * 0.5) if what.startswith("SSD_SHAPES") \
+        else -torch.linspace(1.0, 16.0, h, device=dev)
+    if not what.endswith("strided views"):
+        return z(b, t, h, p), dt, a, z(b, t, g, n) * 0.3, z(b, t, g, n) * 0.3
+    conv = z(b, t, h * p + 2 * g * n)
+    if not what.startswith("unit-scale"):
+        conv[..., h * p:] *= 0.3
+    return (conv[..., :h * p].reshape(b, t, h, p), dt, a,
+            conv[..., h * p:h * p + g * n].reshape(b, t, g, n),
+            conv[..., h * p + g * n:].reshape(b, t, g, n))
+
+
+def _kernel_per_launch_ms(by_name: dict, kernel_name: str):
+    """-> (ms a recorded launch, launches recorded) of one kernel in a
+    profile's {activity name: (summed s, count)}."""
+    hits = [v for name, v in by_name.items() if kernel_name in name]
+    s, k = sum(t for t, _ in hits), sum(c for _, c in hits)
+    return (s / k * 1e3 if k else float("nan")), k
+
+
+def ssd_phase(dev, cases=SSD_CASES):
+    """The kernel against `ssd_chunk_scan_streaming` on the card, in float32
+    and in float64 -> its record (times at the first case, mamba2-2.7b's
+    prefill layer)."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain version: fp32
+    record = None
+    for b, t, h, p, g, n, q, what in cases:
+        args = _ssd_inputs(b, t, h, p, g, n, dev, what)
+        run = lambda: ops.ssd_scan(*args, chunk=q)
+        plain = lambda: ref.ssd_chunk_scan_streaming(*args, q)
+        out, want = run(), plain()
+        truth = ref.ssd_chunk_scan_streaming(*[v.double() for v in args], q)
+        torch.cuda.synchronize()
+        if out.shape != (b, t, h, p) or out.dtype != torch.float32 \
+                or not torch.isfinite(out).all():
+            raise RuntimeError(f"ssd {what}: bad output")
+        torch.testing.assert_close(out.double(), truth, rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+        if what not in SSD_FLOAT64_ONLY:
+            torch.testing.assert_close(out, want, rtol=SSD_TOL, atol=SSD_TOL)
+        err = float((out - want).abs().max())
+        over = [float(((v.double() - truth).abs()
+                       / (SSD_TOL * (1 + truth.abs()))).max())
+                for v in (out, want)]
+        ms = device_times_ms(run, cold=True)
+        warm_ms = device_times_ms(run)
+        b2b_ms = back_to_back_ms(run)
+        plain_ms = device_times_ms(plain, cold=True)
+        plain_warm_ms = device_times_ms(plain)
+        b_ms, b_by = ssd_bound_ms(b, t, h, p, g, n, q)
+        cupti = device_busy(lambda: [run() for _ in range(N_TIMED)])
+        kern_ms, kern_n = _kernel_per_launch_ms(cupti[4], "ssd_fwd_kernel")
+        shape = f"B={b} T={t} H={h} P={p} G={g} N={n} Q={q}"
+        say("ssd", f"{what} ({shape}): max abs err {err:.3g} (tol "
+            f"{SSD_TOL:g}; outputs up to {float(want.abs().max()):.3g}); "
+            f"against float64, worst |err| / tol: kernel {over[0]:.3g}, "
+            f"plain {over[1]:.3g}; "
+            f"events, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"warm L2: kernel {warm_ms:.4f} ms, plain {plain_warm_ms:.4f} "
+            f"ms; {N_TIMED} kernel calls back to back: {b2b_ms:.4f} ms a "
+            f"call; profiler, warm: {kern_ms:.4f} ms a launch over {kern_n} "
+            f"launches recorded; bound {b_ms:.5f} ms ({b_by}), kernel at "
+            f"{100 * b_ms / ms:.1f}% of it (cold)")
+        if record is None:
+            record = dict(
+                name="ssd_scan", route="cuda", source=SSD_SOURCE,
+                replaces="src/repro/kernels/ssd_scan/kernel.py:26",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
+                back_to_back_ms=b2b_ms, profiler_ms=kern_ms, shape=shape)
+    return record
+
+
+def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
+    """A Mamba2 model (ssm or hybrid family) at the size `cfg` gives, with
+    the flash hook installed: the prefill [prefill_b, PREFILL_S] must
+    launch the SSD kernel once a Mamba2 layer and nothing else; then the
+    engine (when `engine`); then, with the weights cast to float32 in
+    place, teacher-forced decode over TEACHER_LEN tokens against the
+    kernel prefill's last logits (LOGIT_TOL_F32) -> SSD launches in one
+    prefill."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import (attention, decode_step, forward,
+                                    init_cache, init_model)
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import Request, ServeEngine
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    model = init_model(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (prefill_b, PREFILL_S))).to(dev)
+    torch.cuda.synchronize()
+    shared = (f", the shared GQA block ({cfg.n_heads}/{cfg.n_kv_heads} "
+              f"heads of {cfg.d_head}, d_ff {cfg.d_ff}, window "
+              f"{cfg.sliding_window}) after every {cfg.shared_attn_every}"
+              if cfg.family == "hybrid" else "")
+    say(tag, f"{cfg.name}: {n_params / 1e9:.3f}B params ({cfg.param_dtype}"
+        f"), {cfg.n_layers} Mamba2 layers{shared}, d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner} = {cfg.n_ssm_heads} heads of "
+        f"{cfg.ssm_headdim}, d_state {cfg.d_state}, chunk {cfg.chunk}, "
+        f"vocab {cfg.vocab}; init {time.perf_counter() - t_phase:.2f} s")
+
+    def prefill(toks=tokens):
+        return forward(model, cfg, {"tokens": toks}, logits_mode="last")
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        flash_ops.install()
+        try:
+            reset_launch_counts()
+            logits = prefill()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = {**{k: 0 for k in launches}, "ssd": cfg.n_layers}
+            if launches != want:
+                raise RuntimeError(f"prefill launches {launches}, want "
+                                   f"ssd={cfg.n_layers} and no other")
+            if tuple(logits.shape) != (prefill_b, 1, cfg.vocab) \
+                    or not torch.isfinite(logits).all():
+                raise RuntimeError(f"prefill: bad logits "
+                                   f"{tuple(logits.shape)}")
+            ms = device_times_ms(prefill, n=5)
+            wall, busy, n_ops, _, by_name = device_busy(prefill)
+        finally:
+            attention.set_flash_impl(None)
+    kern_ms, kern_n = _kernel_per_launch_ms(by_name, "ssd_fwd_kernel")
+    say(tag, f"(a) prefill [{prefill_b}, {PREFILL_S}] -> logits "
+        f"{tuple(logits.shape)}: launches {launches}; {ms:.2f} ms (events); "
+        f"profiled: {wall * 1e3:.2f} ms wall, device busy {busy * 1e3:.2f} "
+        f"ms ({100 * busy / wall:.1f}%) in {n_ops} ops, the SSD kernel "
+        f"{kern_ms * kern_n:.2f} ms in {kern_n} launches recorded "
+        f"({kern_ms:.4f} ms each); {prefill_b * PREFILL_S / ms:.0f} prompt "
+        f"tokens/ms; phase {time.perf_counter() - t0:.1f} s")
+    say(tag, "(a) prefill's longest device activities: "
+        + top_activities(by_name))
+
+    if engine:
+        t0 = time.perf_counter()
+        tr = Tracer()
+        eng = ServeEngine(cfg, model, batch=ENGINE_BATCH,
+                          max_len=ENGINE_MAX_LEN, tracer=tr, device=dev)
+        lens = rng.integers(SSM_PROMPT_LENS[0], SSM_PROMPT_LENS[1] + 1,
+                            SSM_ENGINE_REQUESTS)
+        for rid, n in enumerate(lens):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                0, cfg.vocab, int(n)).astype(np.int32),
+                max_new_tokens=SSM_NEW_TOKENS))
+        ticks = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+        out = [len(r.out_tokens) for r in eng.done.values()]
+        if sorted(eng.done) != list(range(SSM_ENGINE_REQUESTS)) \
+                or out != [SSM_NEW_TOKENS + 1] * SSM_ENGINE_REQUESTS:
+            raise RuntimeError(f"engine finished {sorted(eng.done)} with "
+                               f"{out} tokens")
+        sp = tr.span_times()
+        toks = torch.zeros(ENGINE_BATCH, dtype=torch.int32, device=dev)
+        wall_1, busy_1, n_ops_1, _, by_1 = device_busy(
+            lambda: decode_step(model, cfg, eng.cache, toks, 0))
+        say(tag, f"(b) engine: {SSM_ENGINE_REQUESTS} requests (prompts "
+            f"{sorted(lens.tolist())}), {sum(out)} tokens out, {ticks} "
+            f"ticks, {wall:.2f} s wall, {sum(out) / wall:.1f} tokens/s; "
+            f"token-by-token prefill {sp.get('serve.prefill', 0):.2f} s "
+            f"({int(lens.sum())} steps), decode ticks "
+            f"{sp.get('serve.decode', 0):.2f} s")
+        say(tag, f"(b) one profiled decode_step: {wall_1 * 1e3:.2f} ms "
+            f"wall, device busy {busy_1 * 1e3:.3f} ms "
+            f"({100 * busy_1 / wall_1:.1f}%) in {n_ops_1} ops; longest: "
+            + top_activities(by_1, 3))
+
+    t0 = time.perf_counter()
+    prompt = tokens[:1, :TEACHER_LEN]
+    with torch.no_grad():
+        last_bf16 = prefill(prompt)[:, 0].float()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model.float()
+    cache = init_cache(cfg32, 1, TEACHER_LEN, device=dev)
+    for pos in range(TEACHER_LEN):
+        step, cache = decode_step(model, cfg32, cache, prompt[:, pos], pos)
+    reset_launch_counts()
+    with torch.no_grad():
+        last = forward(model, cfg32, {"tokens": prompt},
+                       logits_mode="last")[:, 0]
+    if launch_counts()["ssd"] != cfg.n_layers:
+        raise RuntimeError("the teacher's prefill missed the SSD kernel")
+    err = _logits_close("decode vs prefill (float32)", step, last,
+                        LOGIT_TOL_F32)
+    scale = float(last.abs().max())
+    drift = float((last_bf16 - last).abs().max())
+    say(tag, f"(c) float32 weights: teacher-forced decode_step (the "
+        f"recurrence) over {TEACHER_LEN} tokens against the kernel "
+        f"prefill's last logits: max abs err {err:.4g} ({err / scale:.3g} "
+        f"of the range {scale:.4g}, tol {LOGIT_TOL_F32:g}); the bf16 "
+        f"kernel prefill is {drift:.4g} ({drift / scale:.3g}) from the "
+        f"float32 one; {time.perf_counter() - t0:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches["ssd"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -653,6 +945,12 @@ def main() -> int:
         distinct, archs, dev)
     records["flash_attention"] = flash_phase(dev)
     records["flash_attention"]["launches"] = serve_phase(dev)
+    from repro_torch.configs import get_config
+    records["ssd_scan"] = ssd_phase(dev)
+    records["ssd_scan"]["launches"] = ssm_serve_phase(
+        dev, get_config(SSM_ARCH), "ssm", PREFILL_B)
+    ssm_serve_phase(dev, get_config(HYBRID_ARCH), "hybrid",
+                    HYBRID_PREFILL_B, engine=False)
     say("done", f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

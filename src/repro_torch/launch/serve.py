@@ -3,9 +3,13 @@ requests, on the card unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch smollm-135m \\
         --full --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve lm --arch mamba2-2.7b \\
+        --device cpu
 
-`--full` serves the registered configuration at full width with random
-weights from `--seed`; without it, the reduced variant.  The reference's
+Every ported family serves: `dense` (smollm-135m, ...), `ssm`
+(mamba2-2.7b) and `hybrid` (zamba2-2.7b).  `--full` serves the
+registered configuration at full width with random weights from `--seed`;
+without it, the reduced variant.  The reference's
 `dse` subcommand (the design-space service) is not ported yet (ROADMAP
 queue 1, item 4), nor is `--ckpt-dir` (training's checkpoints, item 8).
 """

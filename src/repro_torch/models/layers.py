@@ -56,6 +56,11 @@ class ParamInit:
         return nn.Parameter(torch.ones(shape, dtype=self.dtype,
                                        device=self.device))
 
+    def const(self, value) -> nn.Parameter:
+        """A fixed value cast to `dtype` (the reference's `pb.const`)."""
+        return nn.Parameter(torch.as_tensor(value).to(self.device,
+                                                      self.dtype))
+
 
 # --------------------------------------------------------------------------
 def rms_norm(x, weight, eps=1e-5):

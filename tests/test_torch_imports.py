@@ -37,11 +37,13 @@ SLICE_MODULES = [
     "repro_torch.configs.registry", "repro_torch.configs.shapes",
     "repro_torch.models", "repro_torch.models.layers",
     "repro_torch.models.moe", "repro_torch.models.attention",
-    "repro_torch.models.model",
+    "repro_torch.models.model", "repro_torch.models.ssm",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ssd_scan.kernel",
+    "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.ops",
     "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch", "repro_torch.launch.serve",
 ]

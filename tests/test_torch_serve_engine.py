@@ -4,7 +4,10 @@ the CPU:
   * against the JAX package's `ServeEngine`, from the same parameters and
     the same requests: every request's `out_tokens` are equal (greedy
     argmax over float32 logits that agree to ~1e-6, see
-    tests/test_torch_models.py);
+    tests/test_torch_models.py and tests/test_torch_ssm.py), for the
+    dense model and for the ssm and hybrid families, whose slots carry
+    conv/ssm states that the token-by-token prefill advances for every
+    slot, as the reference's does;
   * the slot invariants of tests/test_serve_engine.py, over a stub decode
     (token t always emits t+1, as one-hot logits)."""
 import jax
@@ -25,10 +28,10 @@ ARCH = "smollm-135m"
 CFG = reduced_config(ARCH)
 
 
-def _requests(make, n, seed=0, max_new_tokens=4):
+def _requests(make, n, seed=0, max_new_tokens=4, vocab=CFG.vocab):
     rng = np.random.default_rng(seed)
     return [make(rid=rid, prompt=rng.integers(
-        0, CFG.vocab, size=int(rng.integers(1, 7))).astype(np.int32),
+        0, vocab, size=int(rng.integers(1, 7))).astype(np.int32),
         max_new_tokens=max_new_tokens) for rid in range(n)]
 
 
@@ -49,6 +52,28 @@ def test_engine_matches_jax(batch, max_len, eos_id):
     for r in _requests(JaxRequest, 5):
         ref.submit(r)
     for r in _requests(Request, 5):
+        eng.submit(r)
+    assert eng.run_until_drained() == ref.run_until_drained()
+    assert sorted(eng.done) == sorted(ref.done) == list(range(5))
+    for rid in ref.done:
+        assert eng.done[rid].out_tokens == ref.done[rid].out_tokens, rid
+
+
+@pytest.mark.parametrize("batch,max_len,eos_id", [(2, 32, -1), (3, 12, -1)])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_engine_matches_jax(arch, batch, max_len, eos_id):
+    cj, ct = jax_reduced_config(arch), reduced_config(arch)
+    params, _ = jax_init_model(cj, jax.random.PRNGKey(0))
+    model = convert.load_model_params(
+        init_model(ct, device="cpu"),
+        jax.tree_util.tree_map(np.asarray, params))
+    ref = JaxServeEngine(cj, params, batch=batch, max_len=max_len,
+                         eos_id=eos_id)
+    eng = ServeEngine(ct, model, batch=batch, max_len=max_len,
+                      eos_id=eos_id, device="cpu")
+    for r in _requests(JaxRequest, 5, vocab=ct.vocab):
+        ref.submit(r)
+    for r in _requests(Request, 5, vocab=ct.vocab):
         eng.submit(r)
     assert eng.run_until_drained() == ref.run_until_drained()
     assert sorted(eng.done) == sorted(ref.done) == list(range(5))
