@@ -9,7 +9,11 @@ Each phase prints one line; any failure exits non-zero, and no phase
 catches its own failure.
 
   1. device   the card's name and power limit (nvidia-smi) and capability
-  2. build    nvcc builds the mapspace-scoring kernels from this checkout
+  2. build    nvcc builds the three kernel libraries from this checkout;
+              ptxas's registers and spills and the dynamic shared memory
+              of the tensor-core flash kernel, and its library's count of
+              HGMMA (wgmma) and UTMALDG (TMA load) instructions in SASS,
+              which must not be 0 where the toolkit has cuobjdump
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes (AlexNet-CIFAR `intra[2]`, no-bypass
               mapspace) and on a ragged 37-row slice; times from CUDA events
@@ -26,21 +30,30 @@ catches its own failure.
               workloads, no-bypass mapspaces, traced (pack, copies,
               kernel, validity); the multi-architecture kernel must
               launch, and the winners must equal the oracle's
-  6. flash    the flash-attention kernel against its plain version on the
-              card: the serving prefill's shape (B=4, S=2048, 9 query on 3
-              KV heads of 64, bf16), a ragged float32 shape (S=1000,
-              D=128) and one small case each at D=80 and D=96; times as
-              in phase 3, beside the bound and one PyTorch call computing
+  6. flash    both flash-attention kernels against their plain version
+              on the card, each case on the route `choose_route` names
+              (printed, and checked against the route counters): the
+              serving prefill's shape (B=4, S=2048, 9 query on 3 KV heads
+              of 64, bf16), bf16 at D=128 causal and full and a ragged
+              S=1000 at D=64 on the tensor-core kernel; a ragged float32
+              shape (S=1000, D=128) and one small case each at D=80 and
+              D=96 on the SIMT kernel.  At the prefill's shape: times as
+              in phase 3, beside the bound, the SIMT kernel on the same
+              values in a padded layout that only it takes (the kernel
+              before the tensor-core one), and one PyTorch call computing
               the same function (`scaled_dot_product_attention`, timed
               here only, never called by the port)
   7. serve    smollm-135m at full width (bf16, random weights from a seed):
               (a) the prefill `forward(tokens [4, 2048], logits_mode=
-              "last")` with the kernel installed must launch it once per
-              layer (30) and match the plain-attention forward; timed,
-              with the device's busy share; (b) `ServeEngine(batch=4,
-              max_len=256)` answers 8 requests (prompts of 16-128 tokens,
-              32 new tokens each), and teacher-forced `decode_step` on a
-              128-token prompt matches the prefill's last logits
+              "last")` with the kernel installed must launch the
+              tensor-core kernel once per layer (30) and nothing else,
+              and match the plain-attention forward; timed by events,
+              by the host clock (a call's latency and the part of it
+              spent enqueueing) and with the device's busy share;
+              (b) `ServeEngine(batch=4, max_len=256)` answers 8 requests
+              (prompts of 16-128 tokens, 32 new tokens each), and
+              teacher-forced `decode_step` on a 128-token prompt matches
+              the prefill's last logits
   8. ssd      the SSD-scan kernel against its plain version
               (`ssd_chunk_scan_streaming`, TF32 off) on the card, at 2e-4:
               mamba2-2.7b's prefill layer (B=4, T=2048, 80 heads of 64,
@@ -74,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -114,11 +128,18 @@ SOURCE = "src/repro_torch/kernels/mapspace_eval/csrc/mapspace_eval.cu"
 PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: FP32_FLOP_PER_S}
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/" \
     "flash_attention.cu"
-# (b, s, h, hkv, d, dtype): the serving prefill's shape first
-FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16),
-               (1, 1000, 8, 8, 128, torch.float32),
-               (2, 300, 4, 2, 80, torch.bfloat16),
-               (1, 257, 6, 2, 96, torch.float32)]
+# (b, s, h, hkv, d, dtype, causal): the serving prefill's shape first;
+# bf16 at D 64/128 takes the tensor-core kernel, the rest the SIMT one
+FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16, True),
+               (2, 1024, 8, 2, 128, torch.bfloat16, True),
+               (2, 1024, 8, 2, 128, torch.bfloat16, False),
+               (1, 1000, 6, 2, 64, torch.bfloat16, True),
+               (1, 1000, 8, 8, 128, torch.float32, True),
+               (2, 300, 4, 2, 80, torch.bfloat16, True),
+               (1, 257, 6, 2, 96, torch.float32, True)]
+# the kernel each route launches, as the profiler names it
+FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_tc_kernel",
+                      "simt": "flash_fwd_kernel"}
 # kernel against plain version, as tests/test_kernels.py states them:
 # float32 sums in another order; bf16 outputs one unit in the last place
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -200,6 +221,49 @@ def build_phase() -> None:
                  .splitlines() if "registers" in ln or "spill" in ln]
         say("build", f"{lib.relative_to(ROOT)}; " + " | ".join(ptxas))
     say("build", f"{len(libs)} libraries in {dt:.2f} s (built at once)")
+    tc_build_report(libs[1], flash.LIBRARY.load())
+
+
+def tc_build_report(lib: Path, loaded) -> None:
+    """The tensor-core flash kernel's ptxas report per head dim, its dynamic
+    shared memory, and the count of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in the library's SASS; fails on a spill, or if either
+    count is 0."""
+    entries, cur = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln if FLASH_KERNEL_NAMES["wgmma"] in ln else None
+            if cur is not None:
+                entries[cur] = []
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            entries[cur].append(ln.strip())
+    for d in (64, 128):
+        lines = [v for k, v in entries.items() if f"ILi{d}E" in k]
+        if not lines:
+            raise RuntimeError(f"no ptxas report for the D={d} tensor-core "
+                               f"kernel")
+        say("build", f"flash_fwd_tc_kernel<{d}>: " + " | ".join(lines[0])
+            + f" | {loaded.flash_attention_tc_smem_bytes(d)} bytes of "
+            f"dynamic shared memory")
+        spills = [int(n) for ln in lines[0]
+                  for n in re.findall(r"(\d+) bytes spill", ln)]
+        if not spills or any(spills):
+            raise RuntimeError(f"flash_fwd_tc_kernel<{d}> spills registers "
+                               f"or has no spill report: {lines[0]}")
+    from torch.utils.cpp_extension import CUDA_HOME
+    cuobjdump = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not cuobjdump.exists():
+        say("build", "no cuobjdump in the toolkit: SASS not checked")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout.splitlines()
+    n = {op: sum(op in ln for ln in sass) for op in ("HGMMA", "UTMALDG")}
+    say("build", f"{lib.name} SASS: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
+        f"UTMALDG instructions")
+    if not n["HGMMA"] or not n["UTMALDG"]:
+        raise RuntimeError(f"the tensor-core flash kernel issues no wgmma "
+                           f"or no TMA load: {n}")
 
 
 def launch_counts() -> dict:
@@ -248,6 +312,24 @@ def device_times_ms(fn, n: int = N_TIMED, cold: bool = False):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_times_ms(fn, n: int = 5):
+    """Median host-clock time of one `fn()` call from an idle device to the
+    end of its work (synchronised), and of the part until `fn` returns
+    (the time the host takes to enqueue it): where the two are close, the
+    host's launch rate and not the device sets the call's latency."""
+    fn()
+    walls, enqueues = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        enqueues.append((t1 - t0) * 1e3)
+    return statistics.median(walls), statistics.median(enqueues)
 
 
 def back_to_back_ms(fn, n: int = N_TIMED) -> float:
@@ -515,18 +597,35 @@ def _qkv(b, s, h, hkv, d, dtype, dev, seed=SEED):
                                           (b, s, hkv, d))]
 
 
+def _padded(t):
+    """The same values in a layout whose head stride is D + 1 elements: not
+    16-byte aligned, so only the SIMT kernel takes it."""
+    out = torch.zeros(*t.shape[:3], t.shape[3] + 1, dtype=t.dtype,
+                      device=t.device)
+    out[..., :t.shape[3]] = t
+    return out[..., :t.shape[3]]
+
+
 def flash_phase(dev, cases=FLASH_CASES):
-    """The kernel against `ref.py` on the card -> its record (times at
-    the first case, the serving prefill's shape)."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    """Both kernels against `ref.py` on the card -> the tensor-core
+    kernel's record (times at the first case, the serving prefill's
+    shape)."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False     # plain version: fp32
     record = None
-    for b, s, h, hkv, d, dtype in cases:
+    for b, s, h, hkv, d, dtype, causal in cases:
         q, k, v = _qkv(b, s, h, hkv, d, dtype, dev)
-        run = lambda: ops.flash_attention(q, k, v)
-        plain = lambda: ref.flash_attention_ref(q, k, v)
+        route = kernel.choose_route(q, k, v)
+        run = lambda: ops.flash_attention(q, k, v, causal=causal)
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
+        before = dict(kernel.LAUNCHES)
         out, want = run(), plain()
         torch.cuda.synchronize()
+        tc_launches = kernel.LAUNCHES["flash_wgmma"] - before["flash_wgmma"]
+        if kernel.LAUNCHES["flash"] != before["flash"] + 1 \
+                or tc_launches != (route == "wgmma"):
+            raise RuntimeError(f"flash {tuple(q.shape)}: route {route}, "
+                               f"launches {before} -> {kernel.LAUNCHES}")
         if out.shape != q.shape or out.dtype != dtype \
                 or not torch.isfinite(out).all():
             raise RuntimeError(f"flash {tuple(q.shape)}: bad output")
@@ -534,47 +633,66 @@ def flash_phase(dev, cases=FLASH_CASES):
         torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                    atol=tol)
         err = float((out.float() - want.float()).abs().max())
-        shape = f"B={b} S={s} H={h} Hkv={hkv} D={d} {str(dtype)[6:]}"
+        shape = (f"B={b} S={s} H={h} Hkv={hkv} D={d} {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'full'}")
         if record is not None:
-            say("flash", f"{shape}: max abs err {err:.3g} (tol {tol:g})")
+            say("flash", f"{shape}: route {route}, max abs err {err:.3g} "
+                f"(tol {tol:g})")
             continue
+        if route != "wgmma":
+            raise RuntimeError(f"the prefill's shape took route {route}")
+        # the SIMT kernel on the same values, in a layout only it takes
+        qp, kp, vp = (_padded(t) for t in (q, k, v))
+        if kernel.choose_route(qp, kp, vp) != "simt":
+            raise RuntimeError("the padded layout did not take the SIMT "
+                               "route")
+        simt = lambda: ops.flash_attention(qp, kp, vp, causal=causal)
+        simt_err = float((simt().float() - want.float()).abs().max())
         # SDPA on the [B,H,S,D] views of the same tensors, GQA included
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
         ms = device_times_ms(run, cold=True)
         warm_ms = device_times_ms(run)
         b2b_ms = back_to_back_ms(run)
+        simt_ms = device_times_ms(simt, cold=True)
         plain_ms = device_times_ms(plain, cold=True)
         plain_warm_ms = device_times_ms(plain)
         library_ms = device_times_ms(library, cold=True)
-        b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype)
+        b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype, causal)
         cupti = [device_busy(lambda: [f() for _ in range(N_TIMED)])
-                 for f in (run, plain, library)]
+                 for f in (run, plain, library, simt)]
         prof = [c[3] / N_TIMED * 1e3 for c in cupti]
-        kern_s, kern_n = [v for name, v in cupti[0][4].items()
-                          if "flash_fwd_kernel" in name][0]
-        kern_ms = kern_s / kern_n * 1e3
-        say("flash", f"{shape}: max abs err {err:.3g} (tol {tol:g}; "
-            f"SDPA's {lib_err:.3g}); events, cold L2: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; warm L2: "
-            f"kernel {warm_ms:.4f} ms, plain {plain_warm_ms:.4f} ms; "
-            f"{N_TIMED} kernel calls back to back: {b2b_ms:.4f} ms a call; "
-            f"profiler, warm: kernel {kern_ms:.4f} ms a launch over "
-            f"{kern_n} launches recorded; device time per call: kernel "
-            f"{prof[0]:.4f} "
-            f"ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} ms; bound "
-            f"{b_ms:.5f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / ms:.1f}% of it (cold)")
+        per_launch = []
+        for c, name in ((cupti[0], FLASH_KERNEL_NAMES["wgmma"]),
+                        (cupti[3], FLASH_KERNEL_NAMES["simt"])):
+            kern_s, kern_n = [v for n, v in c[4].items() if name in n][0]
+            per_launch.append((kern_s / kern_n * 1e3, kern_n))
+        (kern_ms, kern_n), (simt_prof_ms, _) = per_launch
+        say("flash", f"{shape}: route {route}, max abs err {err:.3g} (tol "
+            f"{tol:g}; SIMT kernel's {simt_err:.3g}, SDPA's {lib_err:.3g}); "
+            f"events, cold L2: kernel {ms:.4f} ms, SIMT kernel "
+            f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{library_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms, plain "
+            f"{plain_warm_ms:.4f} ms; {N_TIMED} kernel calls back to back: "
+            f"{b2b_ms:.4f} ms a call; profiler, warm: kernel {kern_ms:.4f} "
+            f"ms a launch over {kern_n} launches recorded, SIMT kernel "
+            f"{simt_prof_ms:.4f} ms; device time per call: kernel "
+            f"{prof[0]:.4f} ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} "
+            f"ms; bound {b_ms:.5f} ms ({b_by}), kernel at "
+            f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
+            f"{100 * b_ms / library_ms:.1f}%")
         record = dict(
             name="flash_attention", route="cuda", source=FLASH_SOURCE,
             replaces="src/repro/kernels/flash_attention/kernel.py:27",
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            kernel=f"flash_fwd_tc_kernel<{d}>", kernel_route=route,
             warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
-            back_to_back_ms=b2b_ms, profiler_ms=kern_ms, shape=shape)
+            back_to_back_ms=b2b_ms, profiler_ms=kern_ms,
+            simt_ms=simt_ms, simt_profiler_ms=simt_prof_ms, shape=shape)
     return record
 
 
@@ -621,11 +739,15 @@ def serve_phase(dev, cfg=None):
             fused = prefill()
             torch.cuda.synchronize()
             launches = launch_counts()
-            if launches["flash"] != cfg.n_layers or launches["single"] \
-                    or launches["multi"] or launches["ssd"]:
+            if launches["flash"] != cfg.n_layers \
+                    or launches["flash_wgmma"] != cfg.n_layers \
+                    or launches["single"] or launches["multi"] \
+                    or launches["ssd"]:
                 raise RuntimeError(f"prefill launches {launches}, want "
-                                   f"flash={cfg.n_layers} and no other")
+                                   f"flash=flash_wgmma={cfg.n_layers} and "
+                                   f"no other")
             fused_ms = device_times_ms(prefill, n=5)
+            host_ms, enqueue_ms = host_times_ms(prefill)
             wall, busy, n_ops, _, by_name = device_busy(prefill)
         finally:
             attention.set_flash_impl(None)
@@ -633,13 +755,17 @@ def serve_phase(dev, cfg=None):
         plain_ms = device_times_ms(prefill, n=5)
     err = _logits_close("prefill", fused, plain)
     say("serve", f"(a) prefill [{PREFILL_B}, {PREFILL_S}] -> logits "
-        f"{tuple(fused.shape)}: flash launches {launches['flash']}; "
+        f"{tuple(fused.shape)}: flash launches {launches['flash']} "
+        f"({launches['flash_wgmma']} on the tensor-core route); "
         f"{fused_ms:.2f} ms with the kernel, {plain_ms:.2f} ms with plain "
         f"attention (events); against plain max abs err {err:.4g} "
         f"(logits up to {float(plain.float().abs().max()):.4g}); "
         f"profiled: {wall * 1e3:.2f} ms wall, device busy "
         f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) in {n_ops} ops; "
-        f"{PREFILL_B * PREFILL_S / fused_ms:.0f} prompt tokens/ms")
+        f"{PREFILL_B * PREFILL_S / fused_ms:.0f} prompt tokens/ms; host "
+        f"clock with the kernel: {host_ms:.2f} ms a call from an idle "
+        f"device to its end, {enqueue_ms:.2f} ms of it to enqueue the "
+        f"call's work")
     say("serve", "(a) prefill's longest device activities: "
         + top_activities(by_name))
 
@@ -689,7 +815,7 @@ def serve_phase(dev, cfg=None):
     err = _logits_close("decode vs prefill", step, last)
     say("serve", f"teacher-forced decode_step over {TEACHER_LEN} tokens "
         f"against the flash prefill's last logits: max abs err {err:.4g}")
-    return launches["flash"]
+    return launches["flash_wgmma"]
 
 
 def ssd_bound_ms(b, t, h, p, g, n, q):

@@ -1,12 +1,21 @@
-"""Causal flash attention as a hand-written CUDA kernel for sm_90a.
+"""Causal flash attention as hand-written CUDA kernels for sm_90a.
 
-`csrc/flash_attention.cu` holds `flash_fwd_kernel<T, D>` (T float or bf16,
-D in 64/80/96/128), the counterpart of the Pallas `_flash_kernel`: one
-block per (q tile, q head, batch row) on the model's [B, S, H, D] layout,
-with the KV head taken as `q_head // group`, so no K/V copy is made.  The
-source is compiled by `nvcc` at first use (`kernels/build.py`) and loaded
-with `ctypes`; `flash_attention_fwd` launches on PyTorch's current stream
-and counts its launches in `LAUNCHES["flash"]`.
+`csrc/flash_attention.cu` holds two counterparts of the Pallas
+`_flash_kernel`, both on the model's [B, S, H, D] layout with the KV head
+taken as `q_head // group`, so no K/V copy is made:
+
+* `flash_fwd_tc_kernel<D>` (route "wgmma"): bf16 at D 64 and 128, both
+  products on the tensor cores (`wgmma`), K/V tiles through TMA into a
+  two-stage ring, a producer warpgroup and two consumer warpgroups;
+* `flash_fwd_kernel<T, D>` (route "simt"): float32 at every D and bf16 at
+  D 80 and 96, products in fp32 on the CUDA cores.
+
+`choose_route` picks one from the inputs' type, head dim and alignment
+before any launch; nothing falls back from one to the other.  The source is
+compiled by `nvcc` at first use (`kernels/build.py`) and loaded with
+`ctypes`; `flash_attention_fwd` launches on PyTorch's current stream and
+counts its launches: `LAUNCHES["flash"]` every launch,
+`LAUNCHES["flash_wgmma"]` those of the tensor-core route.
 """
 from __future__ import annotations
 
@@ -20,9 +29,13 @@ from ..build import SM90A, CudaLibrary
 
 SUPPORTED_D = (64, 80, 96, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the routes, by the code the C entry takes
+ROUTES = {"simt": 0, "wgmma": 1}
+WGMMA_D = (64, 128)        # whole 128-byte swizzle panels of bf16
+TMA_ALIGN = 16             # bytes: TMA's base address and stride unit
 
 #: kernel launches since import (or the last `reset_launches`)
-LAUNCHES: Dict[str, int] = {"flash": 0}
+LAUNCHES: Dict[str, int] = {"flash": 0, "flash_wgmma": 0}
 
 
 def reset_launches() -> None:
@@ -32,8 +45,10 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 7 + [ll] * 9 + [p]
+    lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 8 + [ll] * 9 + [p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_tc_smem_bytes.argtypes = [i]
+    lib.flash_attention_tc_smem_bytes.restype = i
 
 
 LIBRARY = CudaLibrary(
@@ -72,16 +87,33 @@ def check_inputs(q, k, v) -> None:
         raise ValueError("q, k and v need unit stride along the head dim")
 
 
+def choose_route(q, k, v) -> str:
+    """The kernel that takes these inputs: "wgmma" for bfloat16 at D 64 or
+    128 whose base pointers and strides (of every dimension longer than 1)
+    are positive multiples of 16 bytes, as TMA reads them; "simt" for
+    everything else `check_inputs` accepts.  Pure Python, no launch."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_D:
+        return "simt"
+    for t in (q, k, v):
+        if t.data_ptr() % TMA_ALIGN:
+            return "simt"
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            if n > 1 and (st <= 0 or st * t.element_size() % TMA_ALIGN):
+                return "simt"
+    return "wgmma"
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """q [B,S,H,D], k/v [B,S,Hkv,D] CUDA tensors -> o [B,S,H,D], a new
-    contiguous tensor of q's type.  Forward only: raises when autograd
-    would need a gradient through it."""
+    contiguous tensor of q's type, from the kernel `choose_route` names.
+    Forward only: raises when autograd would need a gradient through it."""
     check_inputs(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the flash-attention kernel has no backward yet; "
                            "call it under torch.no_grad()")
+    route = choose_route(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
@@ -91,10 +123,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = LIBRARY.load().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            k.shape[2], d, DTYPE_CODES[q.dtype], int(causal), *strides,
-            stream)
+            k.shape[2], d, DTYPE_CODES[q.dtype], int(causal), ROUTES[route],
+            *strides, stream)
+    if rc < 0:
+        raise RuntimeError(f"flash_attention ({route}): the driver refused "
+                           f"a tensor map: CUresult {-rc}")
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"({route}): cudaError {rc}")
     LAUNCHES["flash"] += 1
+    if route == "wgmma":
+        LAUNCHES["flash_wgmma"] += 1
     return o

@@ -102,3 +102,75 @@ def test_plain_version_is_ref():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 20, 4, 2, 80))
     assert torch.equal(ops.flash_attention(q, k, v),
                        ref.flash_attention_ref(q, k, v))
+
+
+def _layout(dtype, d, layout):
+    """q/k/v [2, 40, 6|2, d] of `dtype`: contiguous ("aligned"), with a head
+    stride of d + 1 elements ("misaligned-stride"), or starting one element
+    into their storage ("misaligned-pointer")."""
+    out = []
+    for h in (6, 2, 2):
+        if layout == "misaligned-stride":
+            t = torch.zeros(2, 40, h, d + 1, dtype=dtype)[..., :d]
+        elif layout == "misaligned-pointer":
+            t = torch.zeros(2 * 40 * h * d + 1, dtype=dtype)[1:].view(
+                2, 40, h, d)
+        else:
+            t = torch.zeros(2, 40, h, d, dtype=dtype)
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["aligned", "misaligned-stride",
+                                    "misaligned-pointer"])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_route_by_dtype_head_dim_and_alignment(dtype, d, layout):
+    """The tensor-core kernel for bf16 at D 64/128 read through TMA (base
+    pointers and strides 16-byte aligned); the SIMT kernel for the rest."""
+    q, k, v = _layout(DTYPES[dtype][1], d, layout)
+    kernel.check_inputs(q, k, v)                  # both routes' inputs
+    want = ("wgmma" if dtype == "bfloat16" and d in (64, 128)
+            and layout == "aligned" else "simt")
+    before = dict(kernel.LAUNCHES)
+    assert kernel.choose_route(q, k, v) == want
+    assert kernel.LAUNCHES == before                # chosen before a launch
+
+
+def test_route_takes_packed_kv_views():
+    """K/V as views into one packed [B,S,2*Hkv,D] tensor keep 16-byte
+    strides, so bf16 at D=64 stays on the tensor-core route."""
+    q = torch.zeros(2, 50, 6, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 50, 4, 64, dtype=torch.bfloat16)
+    assert kernel.choose_route(q, kv[:, :, :2], kv[:, :, 2:]) == "wgmma"
+    # a dimension of extent 1 reads only coordinate 0: its stride is free
+    q1 = torch.zeros(1, 50, 6, 65, dtype=torch.bfloat16)[..., :64]
+    assert kernel.choose_route(q1[:, :1, :1], kv[:1, :1, :1],
+                               kv[:1, :1, 1:2]) == "wgmma"
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()))
+def test_kernel_wrapper_raises_on_what_neither_route_takes(case):
+    """The kernel-level entry checks its inputs before it looks at the
+    device or chooses a route: what neither kernel takes raises there."""
+    (q, k, v), match = _bad_inputs()[case]
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        kernel.flash_attention_fwd(q, k, v)
+    assert kernel.LAUNCHES == before
+
+
+def test_c_entry_binding_matches_its_arguments():
+    """`_bind` declares the C entry's 22 arguments: 4 pointers, 8 ints
+    (the route last), 9 strides and the stream."""
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        flash_attention_fwd = Fn()
+        flash_attention_tc_smem_bytes = Fn()
+
+    lib = Lib()
+    kernel._bind(lib)
+    assert len(lib.flash_attention_fwd.argtypes) == 22
+    assert kernel.ROUTES == {"simt": 0, "wgmma": 1}

@@ -1,4 +1,5 @@
-"""Guards on the PyTorch/CUDA port (src/repro_torch) and chip_smoke.py:
+"""Guards on the PyTorch/CUDA port (src/repro_torch), chip_smoke.py and
+the port's scripts (scripts/*.py):
 
   * no file imports `jax` or the JAX package `repro` (AST scan);
   * importing the port and every slice module leaves both out of
@@ -62,7 +63,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "scripts").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
