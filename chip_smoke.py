@@ -13,7 +13,9 @@ catches its own failure.
               ptxas's registers and spills and the dynamic shared memory
               of the tensor-core flash kernel, and its library's count of
               HGMMA (wgmma) and UTMALDG (TMA load) instructions in SASS,
-              which must not be 0 where the toolkit has cuobjdump
+              which must not be 0 where the toolkit has cuobjdump; the
+              same for the SSD route "tc"'s sub-kernels at the models'
+              shapes, whose three product kernels must each issue HGMMA
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes (AlexNet-CIFAR `intra[2]`, no-bypass
               mapspace) and on a ragged 37-row slice; times from CUDA events
@@ -54,17 +56,24 @@ catches its own failure.
               (prompts of 16-128 tokens, 32 new tokens each), and
               teacher-forced `decode_step` on a 128-token prompt matches
               the prefill's last logits
-  8. ssd      the SSD-scan kernel against its plain version
-              (`ssd_chunk_scan_streaming`, TF32 off) on the card, at 2e-4:
+  8. ssd      both SSD-scan kernels against their plain version
+              (`ssd_chunk_scan_streaming`, TF32 off) on the card, at 2e-4,
+              and against it in float64: each case on the route
+              `choose_route` names (checked against the counters) and, where
+              that is the tensor-core route "tc", on the SIMT route too:
               mamba2-2.7b's prefill layer (B=4, T=2048, 80 heads of 64,
               N=128, chunk 128), zamba2-2.7b's layer (B=1, N=64), the JAX
-              kernel test's four shapes and strided views cut from a
-              conv-output-shaped tensor; each timed as in phase 6, beside
-              the bound (`ssd_bound_ms`) and the plain version's time
+              kernel test's four shapes, strided views cut from a
+              conv-output-shaped tensor, T of one chunk, an odd number of
+              chunks and G=2 (40 heads a group); each timed as in phase 6,
+              both routes in the same run, beside the bound that applies
+              to each (`ssd_bound_ms`) and the plain version's time; the
+              profiler's time of one op call sums its sub-kernels
   9. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
               weights from a CUDA generator seeded with 0): (a) the prefill
               `forward(tokens [4, 2048], logits_mode="last")` must launch
-              the SSD kernel 64 times and nothing else; timed, with the
+              the SSD op 64 times, all on route "tc", and nothing else
+              (the counters count op calls); timed, with the
               device's busy share; (b) `ServeEngine(batch=4, max_len=256)`
               answers 8 requests (prompts of 16-64 tokens, 16 new tokens
               each); (c) with the weights cast to float32 (bf16 rounding
@@ -74,8 +83,9 @@ catches its own failure.
               last logits
  10. hybrid   zamba2-2.7b at full width and depth (54 Mamba2 layers, the
               shared GQA block after every 6, window 4096): the prefill
-              [1, 2048] with the flash hook installed launches the SSD
-              kernel 54 times and the flash kernel never (the window keeps
+              [1, 2048] with the flash hook installed calls the SSD op 54
+              times, all on route "tc", and the flash kernel never (the
+              window keeps
               it off, as in the reference's `sdpa`); decode over one chunk
               matches the prefill in float32, as in phase 9
 
@@ -100,10 +110,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
+# outside the tensor cores, TF32 on them (dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 SECTOR_BYTES = 32            # the smallest read the memory system serves
 # Float operations the kernel does per mapping row for S = 21 slots and 3
 # chain pairs, as the note at the top of the .cu file counts them: about
@@ -176,6 +187,20 @@ SSD_CASES = [(4, 2048, 80, 64, 1, 128, 128, "mamba2-2.7b prefill layer"),
 # difference from the kernel measures the plain version's rounding.
 SSD_TOL = 2e-4
 SSD_FLOAT64_ONLY = ("unit-scale strided views",)
+# edges of the tensor-core route: one chunk (no chunk states), an odd
+# number of chunks, two groups of 40 heads
+SSD_CASES += [(2, 128, 80, 64, 1, 128, 128, "one chunk"),
+              (1, 384, 80, 64, 1, 128, 128, "odd chunks"),
+              (2, 512, 80, 64, 2, 128, 128, "G=2, 40 heads a group")]
+# each route's kernels, as the profiler names them; one op call launches
+# all of its route's kernels once (route "tc" launches no chunk states and
+# no state passing when T is one chunk)
+SSD_KERNEL_NAMES = {
+    "tc": ("ssd_prep_kernel", "ssd_cb_kernel", "ssd_states_kernel",
+           "ssd_pass_kernel", "ssd_out_kernel"),
+    "simt": ("ssd_fwd_kernel",)}
+# the models' instantiations of route "tc" (Q, N, P), for the build report
+SSD_TC_SHAPES = ((128, 128, 64), (128, 64, 64))
 SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
 # Decode against prefill for the Mamba2 models runs in float32 (the same
 # weights, cast): with random weights their bf16 rounding is amplified
@@ -222,6 +247,7 @@ def build_phase() -> None:
         say("build", f"{lib.relative_to(ROOT)}; " + " | ".join(ptxas))
     say("build", f"{len(libs)} libraries in {dt:.2f} s (built at once)")
     tc_build_report(libs[1], flash.LIBRARY.load())
+    ssd_build_report(libs[2], ssd.LIBRARY.load())
 
 
 def tc_build_report(lib: Path, loaded) -> None:
@@ -229,14 +255,8 @@ def tc_build_report(lib: Path, loaded) -> None:
     shared memory, and the count of HGMMA (wgmma) and UTMALDG (TMA load)
     instructions in the library's SASS; fails on a spill, or if either
     count is 0."""
-    entries, cur = {}, None
-    for ln in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in ln:
-            cur = ln if FLASH_KERNEL_NAMES["wgmma"] in ln else None
-            if cur is not None:
-                entries[cur] = []
-        elif cur is not None and ("registers" in ln or "spill" in ln):
-            entries[cur].append(ln.strip())
+    entries = {k: v for k, v in _ptxas_entries(lib).items()
+               if FLASH_KERNEL_NAMES["wgmma"] in k}
     for d in (64, 128):
         lines = [v for k, v in entries.items() if f"ILi{d}E" in k]
         if not lines:
@@ -250,20 +270,93 @@ def tc_build_report(lib: Path, loaded) -> None:
         if not spills or any(spills):
             raise RuntimeError(f"flash_fwd_tc_kernel<{d}> spills registers "
                                f"or has no spill report: {lines[0]}")
-    from torch.utils.cpp_extension import CUDA_HOME
-    cuobjdump = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
-    if not cuobjdump.exists():
+    n = _sass_counts(lib, ("HGMMA", "UTMALDG"))
+    if n is None:
         say("build", "no cuobjdump in the toolkit: SASS not checked")
         return
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout.splitlines()
-    n = {op: sum(op in ln for ln in sass) for op in ("HGMMA", "UTMALDG")}
     say("build", f"{lib.name} SASS: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
         f"UTMALDG instructions")
     if not n["HGMMA"] or not n["UTMALDG"]:
         raise RuntimeError(f"the tensor-core flash kernel issues no wgmma "
                            f"or no TMA load: {n}")
+
+
+def _ptxas_entries(lib: Path) -> dict:
+    """{entry-function line: its ptxas register and spill lines} from a
+    library's build log."""
+    entries, cur = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln
+            entries[cur] = []
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            entries[cur].append(ln.strip())
+    return entries
+
+
+def _sass(lib: Path):
+    """-> {kernel function: its SASS} of a library, or None where the
+    toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cuobjdump = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not cuobjdump.exists():
+        return None
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return dict(re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
+                           re.S))
+
+
+def _count(text: str, op: str) -> int:
+    return len(re.findall(rf"\b{op}\b", text))
+
+
+def _sass_counts(lib: Path, ops) -> dict:
+    """-> {op: instructions of that name in the library's SASS}, or None
+    where the toolkit has no cuobjdump."""
+    fns = _sass(lib)
+    return None if fns is None else {
+        op: sum(_count(body, op) for body in fns.values()) for op in ops}
+
+
+def ssd_build_report(lib: Path, loaded) -> None:
+    """Route "tc"'s sub-kernels at the models' shapes: ptxas registers and
+    spills, dynamic shared memory; the HGMMA (wgmma) instructions in SASS
+    of each of its three product kernels.  Fails on a spill, or if one of
+    them has none."""
+    entries = _ptxas_entries(lib)
+    dyn = {"ssd_cb_kernel": 1, "ssd_states_kernel": 2, "ssd_out_kernel": 4}
+    for q, n, p in SSD_TC_SHAPES:
+        tags = {"ssd_prep_kernel": f"ILi{q}EE", "ssd_pass_kernel": "",
+                "ssd_cb_kernel": f"ILi{q}ELi{n}EE",
+                "ssd_states_kernel": f"ILi{q}ELi{n}ELi{p}EE",
+                "ssd_out_kernel": f"ILi{q}ELi{n}ELi{p}EE"}
+        for name, tag in tags.items():
+            lines = [v for k, v in entries.items() if name in k and tag in k]
+            if not lines:
+                raise RuntimeError(f"no ptxas report for {name} {tag}")
+            smem = (f" | {loaded.ssd_tc_smem_bytes(dyn[name], q, n, p)} "
+                    f"bytes of dynamic shared memory" if name in dyn else "")
+            say("build", f"{name} (Q={q}, N={n}, P={p}): "
+                + " | ".join(lines[0]) + smem)
+            spills = [int(v) for ln in lines[0]
+                      for v in re.findall(r"(\d+) bytes spill", ln)]
+            if not spills or any(spills):
+                raise RuntimeError(f"{name} spills registers or has no "
+                                   f"spill report: {lines[0]}")
+    fns = _sass(lib)
+    if fns is None:
+        say("build", "no cuobjdump in the toolkit: SASS not checked")
+        return
+    for name in dyn:
+        counts = [_count(body, "HGMMA") for f, body in fns.items()
+                  if name in f]
+        say("build", f"{name}: HGMMA instructions in SASS per "
+            f"instantiation: {counts}")
+        if not counts or not all(counts):
+            raise RuntimeError(f"{name} issues no wgmma in some "
+                               f"instantiation: {counts}")
 
 
 def launch_counts() -> dict:
@@ -820,19 +913,26 @@ def serve_phase(dev, cfg=None):
 
 def ssd_bound_ms(b, t, h, p, g, n, q):
     """The least time the card could take for the SSD scan on these
-    shapes: the larger of its operations at the float32 peak outside the
-    tensor cores and its bytes at HBM bandwidth.  Operations, 2 a
-    multiply-add, with C B^T formed once per (batch row, group, chunk) and
-    only the causal half (Q(Q+1)/2 pairs) of the two Q x Q products
-    counted: C B^T (N deep) per group, its weights times X (P wide), C
-    times the state and the state update (Q x N x P each) per head.
-    Bytes: x, dt, a, B and C read once and y written once, in float32."""
+    shapes, per route: the larger of its operations at the peak of the
+    units the route computes on and its bytes at HBM bandwidth.
+    Operations, 2 a multiply-add, with C B^T formed once per (batch row,
+    group, chunk) and only the causal half (Q(Q+1)/2 pairs) of the two
+    Q x Q products counted: C B^T (N deep) per group, its weights times X
+    (P wide), C times the state and the state update (Q x N x P each) per
+    head; route "simt" does them once at the float32 peak outside the
+    tensor cores, route "tc" three times (the TF32 split) at the TF32
+    peak.  Bytes: x, dt, a, B and C read once and y written once, in
+    float32.  -> {route: (ms, "operations" or "bytes")}."""
     nc, pairs = t // q, q * (q + 1) // 2
     flops = 2 * b * nc * (g * pairs * n + h * pairs * p + 2 * h * q * n * p)
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
     nbytes = 4 * (2 * b * t * h * p + 2 * b * t * g * n + b * t * h + h)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    def bound(t_ops):
+        return (t_ops, "operations") if t_ops >= t_bytes \
+            else (t_bytes, "bytes")
+    return {"simt": bound(flops / FP32_FLOP_PER_S * 1e3),
+            "tc": bound(3 * flops / TF32_FLOP_PER_S * 1e3)}
 
 
 def _ssd_inputs(b, t, h, p, g, n, dev, what, seed=SEED):
@@ -857,66 +957,146 @@ def _ssd_inputs(b, t, h, p, g, n, dev, what, seed=SEED):
             conv[..., h * p + g * n:].reshape(b, t, g, n))
 
 
-def _kernel_per_launch_ms(by_name: dict, kernel_name: str):
-    """-> (ms a recorded launch, launches recorded) of one kernel in a
-    profile's {activity name: (summed s, count)}."""
-    hits = [v for name, v in by_name.items() if kernel_name in name]
-    s, k = sum(t for t, _ in hits), sum(c for _, c in hits)
-    return (s / k * 1e3 if k else float("nan")), k
+def ssd_launched(route: str, t: int, q: int) -> tuple:
+    """The sub-kernels one SSD op call on `route` launches at sequence
+    length `t` and chunk `q`: route "tc" has no chunk states and no state
+    passing when `t` is one chunk."""
+    names = SSD_KERNEL_NAMES[route]
+    if route == "tc" and t // q == 1:
+        names = tuple(k for k in names
+                      if k not in ("ssd_states_kernel", "ssd_pass_kernel"))
+    return names
+
+
+def ssd_call_ms(by_name: dict, names):
+    """-> (device ms of one SSD op call, {sub-kernel: ms a recorded
+    launch}, fewest launches recorded of a sub-kernel) from a profile's
+    {activity name: (summed s, count)}: each sub-kernel in `names` (the
+    call's launches, `ssd_launched`) at its time a recorded launch (the
+    profiler may drop launches), summed.  A sub-kernel with no launch
+    recorded is None, and so is the call's time: not measured."""
+    per, counts = {}, []
+    for kname in names:
+        hits = [v for name, v in by_name.items() if kname in name]
+        s, k = sum(t for t, _ in hits), sum(c for _, c in hits)
+        per[kname] = s / k * 1e3 if k else None
+        counts.append(k)
+    call = None if None in per.values() else sum(per.values())
+    return call, per, min(counts)
+
+
+def ssd_profile(fn, names, tries: int = 3):
+    """`device_busy(fn)` until the profile has recorded a launch of every
+    sub-kernel in `names`, at most `tries` times -> (the last profile,
+    `ssd_call_ms` of it)."""
+    for _ in range(tries):
+        prof = device_busy(fn)
+        call = ssd_call_ms(prof[4], names)
+        if call[0] is not None:
+            break
+    return prof, call
+
+
+def _ms(v) -> str:
+    return "not recorded" if v is None else f"{v:.4f}"
+
+
+def _sub_kernels(per: dict) -> str:
+    return ", ".join(f"{k.replace('ssd_', '').replace('_kernel', '')} "
+                     f"{_ms(v)}" for k, v in per.items())
 
 
 def ssd_phase(dev, cases=SSD_CASES):
-    """The kernel against `ssd_chunk_scan_streaming` on the card, in float32
-    and in float64 -> its record (times at the first case, mamba2-2.7b's
-    prefill layer)."""
-    from repro_torch.kernels.ssd_scan import ops, ref
+    """Both kernels against `ssd_chunk_scan_streaming` on the card, in
+    float32 and in float64 -> the tensor-core route's record (times at the
+    first case, mamba2-2.7b's prefill layer, beside the SIMT route's)."""
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False     # plain version: fp32
     record = None
     for b, t, h, p, g, n, q, what in cases:
         args = _ssd_inputs(b, t, h, p, g, n, dev, what)
-        run = lambda: ops.ssd_scan(*args, chunk=q)
+        chosen = kernel.choose_route(*args, chunk=q)
         plain = lambda: ref.ssd_chunk_scan_streaming(*args, q)
-        out, want = run(), plain()
+        want = plain()
         truth = ref.ssd_chunk_scan_streaming(*[v.double() for v in args], q)
-        torch.cuda.synchronize()
-        if out.shape != (b, t, h, p) or out.dtype != torch.float32 \
-                or not torch.isfinite(out).all():
-            raise RuntimeError(f"ssd {what}: bad output")
-        torch.testing.assert_close(out.double(), truth, rtol=SSD_TOL,
-                                   atol=SSD_TOL)
-        if what not in SSD_FLOAT64_ONLY:
-            torch.testing.assert_close(out, want, rtol=SSD_TOL, atol=SSD_TOL)
-        err = float((out - want).abs().max())
-        over = [float(((v.double() - truth).abs()
-                       / (SSD_TOL * (1 + truth.abs()))).max())
-                for v in (out, want)]
-        ms = device_times_ms(run, cold=True)
-        warm_ms = device_times_ms(run)
-        b2b_ms = back_to_back_ms(run)
+        shape = f"B={b} T={t} H={h} P={p} G={g} N={n} Q={q}"
+        bounds = ssd_bound_ms(b, t, h, p, g, n, q)
         plain_ms = device_times_ms(plain, cold=True)
         plain_warm_ms = device_times_ms(plain)
-        b_ms, b_by = ssd_bound_ms(b, t, h, p, g, n, q)
-        cupti = device_busy(lambda: [run() for _ in range(N_TIMED)])
-        kern_ms, kern_n = _kernel_per_launch_ms(cupti[4], "ssd_fwd_kernel")
-        shape = f"B={b} T={t} H={h} P={p} G={g} N={n} Q={q}"
-        say("ssd", f"{what} ({shape}): max abs err {err:.3g} (tol "
-            f"{SSD_TOL:g}; outputs up to {float(want.abs().max()):.3g}); "
-            f"against float64, worst |err| / tol: kernel {over[0]:.3g}, "
-            f"plain {over[1]:.3g}; "
-            f"events, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-            f"warm L2: kernel {warm_ms:.4f} ms, plain {plain_warm_ms:.4f} "
-            f"ms; {N_TIMED} kernel calls back to back: {b2b_ms:.4f} ms a "
-            f"call; profiler, warm: {kern_ms:.4f} ms a launch over {kern_n} "
-            f"launches recorded; bound {b_ms:.5f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / ms:.1f}% of it (cold)")
+        res = {}
+        for route in [chosen] + (["simt"] if chosen == "tc" else []):
+            if route == chosen:          # the op, as the model calls it
+                run = lambda: ops.ssd_scan(*args, chunk=q)
+            else:
+                run = lambda r=route: kernel.ssd_scan_fwd(*args, chunk=q,
+                                                          route=r)
+            before = dict(kernel.LAUNCHES)
+            out = run()
+            torch.cuda.synchronize()
+            if kernel.LAUNCHES["ssd"] != before["ssd"] + 1 \
+                    or kernel.LAUNCHES["ssd_tc"] != before["ssd_tc"] + (
+                        route == "tc"):
+                raise RuntimeError(f"ssd {what}: route {route}, launches "
+                                   f"{before} -> {kernel.LAUNCHES}")
+            if out.shape != (b, t, h, p) or out.dtype != torch.float32 \
+                    or not torch.isfinite(out).all():
+                raise RuntimeError(f"ssd {what} ({route}): bad output")
+            torch.testing.assert_close(out.double(), truth, rtol=SSD_TOL,
+                                       atol=SSD_TOL)
+            if what not in SSD_FLOAT64_ONLY:
+                torch.testing.assert_close(out, want, rtol=SSD_TOL,
+                                           atol=SSD_TOL)
+            ms = device_times_ms(run, cold=True)
+            _, (call_ms, per, kern_n) = ssd_profile(
+                lambda: [run() for _ in range(N_TIMED)],
+                ssd_launched(route, t, q))
+            b_ms, b_by = bounds[route]
+            if b_ms > ms:
+                raise RuntimeError(f"ssd {what} ({route}): {ms:.4f} ms is "
+                                   f"under its bound {b_ms:.4f} ms")
+            res[route] = dict(
+                ms=ms, call_ms=call_ms, per=per, kern_n=kern_n,
+                err=float((out - want).abs().max()),
+                err64=float((out.double() - truth).abs().max()),
+                over=float(((out.double() - truth).abs()
+                            / (SSD_TOL * (1 + truth.abs()))).max()),
+                share=b_ms / ms, bound=(b_ms, b_by))
+        over_plain = float(((want.double() - truth).abs()
+                            / (SSD_TOL * (1 + truth.abs()))).max())
+        main = res[chosen]
+        warm_ms = device_times_ms(lambda: ops.ssd_scan(*args, chunk=q))
+        b2b_ms = back_to_back_ms(lambda: ops.ssd_scan(*args, chunk=q))
+        routes = "; ".join(
+            f"{r}: max abs err {v['err']:.3g} against plain, "
+            f"{v['err64']:.3g} against float64 (worst |err| / tol "
+            f"{v['over']:.3g}); {v['ms']:.4f} ms cold, profiler "
+            f"{_ms(v['call_ms'])} ms a call ({_sub_kernels(v['per'])}; "
+            f">= {v['kern_n']} launches of each recorded); bound "
+            f"{v['bound'][0]:.5f} ms ({v['bound'][1]}), at "
+            f"{100 * v['share']:.1f}% of it" for r, v in res.items())
+        say("ssd", f"{what} ({shape}): route {chosen} (outputs up to "
+            f"{float(want.abs().max()):.3g}; plain's worst |err| / tol "
+            f"against float64 {over_plain:.3g}); {routes}; route {chosen} "
+            f"warm L2 {warm_ms:.4f} ms, {N_TIMED} calls back to back "
+            f"{b2b_ms:.4f} ms a call; plain {plain_ms:.4f} ms cold, "
+            f"{plain_warm_ms:.4f} ms warm")
         if record is None:
+            if chosen != "tc":
+                raise RuntimeError(f"the mamba2 layer took route {chosen}")
+            simt = res["simt"]
             record = dict(
                 name="ssd_scan", route="cuda", source=SSD_SOURCE,
                 replaces="src/repro/kernels/ssd_scan/kernel.py:26",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launches=None, max_abs_err=main["err"], ms=main["ms"],
+                plain_ms=plain_ms, bound_ms=main["bound"][0],
+                bound_by=main["bound"][1], library_ms=None,
+                kernel_route="tc", max_abs_err_float64=main["err64"],
                 warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
-                back_to_back_ms=b2b_ms, profiler_ms=kern_ms, shape=shape)
+                back_to_back_ms=b2b_ms, profiler_ms=main["call_ms"],
+                sub_kernels_ms=main["per"], simt_ms=simt["ms"],
+                simt_profiler_ms=simt["call_ms"],
+                simt_bound_ms=simt["bound"][0],
+                simt_max_abs_err=simt["err"], shape=shape)
     return record
 
 
@@ -962,25 +1142,31 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
             logits = prefill()
             torch.cuda.synchronize()
             launches = launch_counts()
-            want = {**{k: 0 for k in launches}, "ssd": cfg.n_layers}
+            want = {**{k: 0 for k in launches}, "ssd": cfg.n_layers,
+                    "ssd_tc": cfg.n_layers}
             if launches != want:
                 raise RuntimeError(f"prefill launches {launches}, want "
-                                   f"ssd={cfg.n_layers} and no other")
+                                   f"ssd=ssd_tc={cfg.n_layers} and no "
+                                   f"other")
             if tuple(logits.shape) != (prefill_b, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"prefill: bad logits "
                                    f"{tuple(logits.shape)}")
             ms = device_times_ms(prefill, n=5)
-            wall, busy, n_ops, _, by_name = device_busy(prefill)
+            (wall, busy, n_ops, _, by_name), (call_ms, per, kern_n) = \
+                ssd_profile(prefill, ssd_launched("tc", PREFILL_S,
+                                                  cfg.chunk))
         finally:
             attention.set_flash_impl(None)
-    kern_ms, kern_n = _kernel_per_launch_ms(by_name, "ssd_fwd_kernel")
+    ssd_total = sum(t for name, (t, _) in by_name.items()
+                    if any(k in name for k in SSD_KERNEL_NAMES["tc"]))
     say(tag, f"(a) prefill [{prefill_b}, {PREFILL_S}] -> logits "
         f"{tuple(logits.shape)}: launches {launches}; {ms:.2f} ms (events); "
         f"profiled: {wall * 1e3:.2f} ms wall, device busy {busy * 1e3:.2f} "
-        f"ms ({100 * busy / wall:.1f}%) in {n_ops} ops, the SSD kernel "
-        f"{kern_ms * kern_n:.2f} ms in {kern_n} launches recorded "
-        f"({kern_ms:.4f} ms each); {prefill_b * PREFILL_S / ms:.0f} prompt "
+        f"ms ({100 * busy / wall:.1f}%) in {n_ops} ops, the SSD op's "
+        f"sub-kernels {ssd_total * 1e3:.2f} ms in all (>= {kern_n} "
+        f"launches of each recorded; {_ms(call_ms)} ms a call: "
+        f"{_sub_kernels(per)}); {prefill_b * PREFILL_S / ms:.0f} prompt "
         f"tokens/ms; phase {time.perf_counter() - t0:.1f} s")
     say(tag, "(a) prefill's longest device activities: "
         + top_activities(by_name))

@@ -29,46 +29,80 @@ def _expand_groups(v, h):
     return v.repeat_interleave(h // v.shape[-2], dim=-2)
 
 
-def ssd_chunk_scan(xh, dt, A, Bh, Ch, chunk: int):
-    """Chunked SSD, all chunks at once (the kernel's oracle)."""
+def _chunked(xh, dt, A, q):
+    """-> (xc [B,nc,Q,H,P], dtc [B,nc,Q,H], dA [B,nc,Q,H], its in-chunk
+    cumulative sum)."""
     b, t, h, p = xh.shape
-    g, n = Bh.shape[2], Bh.shape[3]
-    q = chunk
     assert t % q == 0, (t, q)
     nc = t // q
-    xc = xh.reshape(b, nc, q, h, p)
     dtc = dt.reshape(b, nc, q, h)
-    Bex = _expand_groups(Bh.reshape(b, nc, q, g, n), h)    # [B,nc,Q,H,N]
-    Cex = _expand_groups(Ch.reshape(b, nc, q, g, n), h)
+    dA = dtc * A[None, None, None, :]
+    return xh.reshape(b, nc, q, h, p), dtc, dA, torch.cumsum(dA, dim=2)
 
-    dA = dtc * A[None, None, None, :]                      # [B,nc,Q,H]
-    dA_cs = torch.cumsum(dA, dim=2)
 
-    # intra-chunk (diagonal blocks): L = exp(segsum(dA))
-    L = torch.exp(segsum(dA.movedim(-1, 2)))               # [B,nc,H,Q,Q]
-    scores = torch.einsum("bcqhn,bckhn->bchqk", Cex, Bex)
-    y_diag = torch.einsum("bchqk,bchqk,bckh,bckhp->bcqhp",
-                          scores, L.to(scores.dtype), dtc, xc)
+def chunk_cb(Ch, Bh, chunk: int):
+    """Step 1: C B^T per (batch row, chunk, group) -> [B,nc,G,Q,Q], row i
+    (C's position) against column j (B's), all Q x Q entries."""
+    b, t, g, n = Bh.shape
+    nc = t // chunk
+    return torch.einsum("bcqgn,bckgn->bcgqk",
+                        Ch.reshape(b, nc, chunk, g, n),
+                        Bh.reshape(b, nc, chunk, g, n))
 
-    # chunk states: decay from position to chunk end
+
+def chunk_states(xh, dt, A, Bh, chunk: int):
+    """Step 2: each chunk's own state, (B o exp(cs_last - cs) o dt)^T X per
+    (batch row, chunk, head) -> [B,nc,H,N,P]."""
+    h = xh.shape[2]
+    b, t, g, n = Bh.shape
+    xc, dtc, _, dA_cs = _chunked(xh, dt, A, chunk)
+    Bex = _expand_groups(Bh.reshape(b, t // chunk, chunk, g, n), h)
     decay_out = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)     # [B,nc,Q,H]
-    states = torch.einsum("bcqhn,bcqh,bcqh,bcqhp->bchnp",
-                          Bex, decay_out, dtc, xc)         # [B,nc,H,N,P]
+    return torch.einsum("bcqhn,bcqh,bcqh,bcqhp->bchnp",
+                        Bex, decay_out, dtc, xc)
 
-    # inter-chunk recurrence: s_c carried with decay exp(sum dA_c)
-    chunk_decay = torch.exp(dA_cs[:, :, -1, :])            # [B,nc,H]
-    s = torch.zeros((b, h, n, p), dtype=states.dtype, device=xh.device)
+
+def state_passing(states, dt, A, chunk: int):
+    """Step 3: the state entering each chunk, S_0 = 0 and S_c = S_{c-1}
+    exp(cs_last, c-1) + s_{c-1}, from the chunk states [B,nc,H,N,P] ->
+    [B,nc,H,N,P]."""
+    b, nc, h = states.shape[:3]
+    dA = dt.reshape(b, nc, chunk, h) * A[None, None, None, :]
+    chunk_decay = torch.exp(torch.cumsum(dA, dim=2)[:, :, -1, :])  # [B,nc,H]
+    s = torch.zeros_like(states[:, 0])
     prev = []
     for c in range(nc):
         prev.append(s)
         s = s * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)                 # [B,nc,H,N,P]
+    return torch.stack(prev, dim=1)
 
-    # inter-chunk contribution: decay from chunk start to position
+
+def chunk_outputs(xh, dt, A, Ch, cb, prev_states, chunk: int):
+    """Step 4: y = (CB o L o dt) X + (C o exp(cs)) S_c per (batch row,
+    chunk, head), L[i, j] = exp(cs[i] - cs[j]) for j <= i -> [B,T,H,P]."""
+    b, t, h, p = xh.shape
+    g, n = Ch.shape[2], Ch.shape[3]
+    nc = t // chunk
+    xc, dtc, dA, dA_cs = _chunked(xh, dt, A, chunk)
+    Cex = _expand_groups(Ch.reshape(b, nc, chunk, g, n), h)
+    L = torch.exp(segsum(dA.movedim(-1, 2)))               # [B,nc,H,Q,Q]
+    scores = cb.repeat_interleave(h // g, dim=2)           # [B,nc,H,Q,Q]
+    y_diag = torch.einsum("bchqk,bchqk,bckh,bckhp->bcqhp",
+                          scores, L.to(scores.dtype), dtc, xc)
     decay_in = torch.exp(dA_cs)                            # [B,nc,Q,H]
     y_off = torch.einsum("bcqhn,bcqh,bchnp->bcqhp",
                          Cex, decay_in, prev_states)
     return (y_diag + y_off).reshape(b, t, h, p)
+
+
+def ssd_chunk_scan(xh, dt, A, Bh, Ch, chunk: int):
+    """Chunked SSD, all chunks at once (the kernel's oracle): the SSD block
+    decomposition of arXiv:2405.21060 sec. 6-7 as its four steps."""
+    assert xh.shape[1] % chunk == 0, (xh.shape[1], chunk)
+    states = chunk_states(xh, dt, A, Bh, chunk)
+    prev = state_passing(states, dt, A, chunk)
+    return chunk_outputs(xh, dt, A, Ch, chunk_cb(Ch, Bh, chunk), prev,
+                         chunk)
 
 
 def ssd_chunk_scan_streaming(xh, dt, A, Bh, Ch, chunk: int):

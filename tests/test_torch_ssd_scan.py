@@ -65,6 +65,24 @@ def test_plain_forms_match_jax(fn, b, t, h, p, g, n, q):
 
 
 @pytest.mark.parametrize("b,t,h,p,g,n,q", SSD_SHAPES)
+@pytest.mark.parametrize("fn", ["ssd_chunk_scan", "ssd_chunk_scan_streaming"])
+def test_steps_compose_to_jax(fn, b, t, h, p, g, n, q):
+    """The four step functions (the tensor-core route's plain versions),
+    composed by hand, equal the JAX package's chunked forms."""
+    xh, dt, a, bh, ch = map(torch.from_numpy, _inputs(b, t, h, p, g, n))
+    cb = ref.chunk_cb(ch, bh, q)
+    states = ref.chunk_states(xh, dt, a, bh, q)
+    assert tuple(cb.shape) == (b, t // q, g, q, q)
+    assert tuple(states.shape) == (b, t // q, h, n, p)
+    prev = ref.state_passing(states, dt, a, q)
+    assert not prev[:, 0].any()                   # no state enters chunk 0
+    got = ref.chunk_outputs(xh, dt, a, ch, cb, prev, q)
+    want = getattr(jax_ssm, fn)(*map(jnp.asarray, _inputs(b, t, h, p, g, n)),
+                                q)
+    _close(got, want, CHUNKED_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,q", SSD_SHAPES)
 def test_chunked_forms_match_quadratic(b, t, h, p, g, n, q):
     xh, dt, a, bh, ch = map(torch.from_numpy, _inputs(b, t, h, p, g, n))
     quad = ref.ssd_reference(xh, dt, a, bh, ch)
@@ -117,6 +135,53 @@ def test_op_reads_strided_views():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _zeros(b, t, h, p, g, n):
+    return (torch.zeros(b, t, h, p), torch.zeros(b, t, h), torch.zeros(h),
+            torch.zeros(b, t, g, n), torch.zeros(b, t, g, n))
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,q,route", [
+    (4, 2048, 80, 64, 1, 128, 128, "tc"),      # mamba2-2.7b
+    (1, 2048, 80, 64, 1, 64, 128, "tc"),       # zamba2-2.7b
+    (2, 512, 80, 64, 2, 128, 128, "tc"),       # G = 2, 40 heads a group
+    (2, 512, 80, 64, 80, 128, 128, "tc"),      # G = H
+    (1, 128, 4, 64, 1, 128, 128, "tc"),        # T of one chunk
+    (1, 128, 8, 32, 8, 64, 64, "tc"),          # SSD_SHAPES[3]
+    (1, 256, 2, 64, 1, 128, 128, "tc"),        # SSD_SHAPES[1]
+    (1, 64, 2, 32, 1, 32, 64, "tc"),           # the smallest P, N, Q taken
+    (2, 128, 4, 8, 2, 16, 32, "simt"),         # SSD_SHAPES[0]
+    (2, 64, 4, 16, 4, 32, 16, "simt"),         # SSD_SHAPES[2]
+    (1, 256, 2, 16, 1, 128, 128, "simt"),      # P below a wgmma tile's 32
+    (1, 256, 2, 64, 1, 16, 128, "simt"),       # N below one 32-wide panel
+    (1, 256, 2, 64, 1, 128, 32, "simt"),       # chunk below 64
+], ids=lambda v: str(v))
+def test_choose_route(b, t, h, p, g, n, q, route):
+    args = _zeros(b, t, h, p, g, n)
+    kernel.check_inputs(*args, chunk=q)
+    assert kernel.choose_route(*args, chunk=q) == route
+
+
+@pytest.mark.parametrize("case", ["x_row", "b_row", "c_offset", "x_offset"])
+def test_choose_route_needs_16_byte_alignment(case):
+    """cp.async reads x, B and C 16 bytes at a time: a row stride or a base
+    address off 16 bytes keeps the inputs on the SIMT kernel."""
+    b, t, h, p, g, n, q = 1, 128, 2, 64, 1, 128, 128
+    xh, dt, a, bh, ch = _zeros(b, t, h, p, g, n)
+    if case == "x_row":      # rows of H*P + 1 floats
+        xh = torch.zeros(b, t, h * p + 1)[..., :h * p].reshape(b, t, h, p)
+    elif case == "b_row":
+        bh = torch.zeros(b, t, g * n + 2)[..., :g * n].reshape(b, t, g, n)
+    elif case == "c_offset":
+        ch = torch.zeros(b, t, g * n + 1)[..., 1:].reshape(b, t, g, n)
+    elif case == "x_offset":
+        xh = torch.zeros(b * t * h * p + 3)[3:].reshape(b, t, h, p)
+    kernel.check_inputs(xh, dt, a, bh, ch, chunk=q)
+    assert kernel.choose_route(xh, dt, a, bh, ch, chunk=q) == "simt"
+    fresh = lambda v: v.clone(memory_format=torch.contiguous_format)
+    assert kernel.choose_route(fresh(xh), dt, a, fresh(bh), fresh(ch),
+                               chunk=q) == "tc"
+
+
 def _good():
     return [torch.from_numpy(v) for v in _inputs(1, 32, 4, 8, 2, 16)]
 
@@ -162,3 +227,5 @@ def test_check_inputs_raises(case, match):
 def test_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="no SSD-scan kernel"):
         kernel.ssd_scan_fwd(*_good(), chunk=16)
+    with pytest.raises(ValueError, match="no SSD-scan kernel"):
+        kernel.ssd_tc_steps(*_zeros(1, 128, 2, 64, 1, 128), chunk=128)
