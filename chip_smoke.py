@@ -16,22 +16,32 @@ catches its own failure.
               which must not be 0 where the toolkit has cuobjdump; the
               same for the SSD route "tc"'s sub-kernels at the models'
               shapes, whose three product kernels must each issue HGMMA
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (AlexNet-CIFAR `intra[2]`, no-bypass
-              mapspace) and on a ragged 37-row slice; times from CUDA events
-              (median of 25 calls, with a cold L2 and a warm one) and from
-              torch.profiler (CUPTI), beside the bytes bound
+  3. kernels  both mapspace kernels (which read the packed mapspace and
+              derive every per-row quantity themselves) against their plain
+              PyTorch version on the card: cycles and energy at their
+              tolerances and validity exactly equal, at the main path's
+              shapes (AlexNet-CIFAR `intra[2]`, no-bypass mapspaces: one
+              architecture's for the single-job kernel, all eight's as
+              eight jobs for the multi-job one), on a ragged 37-row slice
+              (37 rows of each job, so job boundaries fall inside blocks),
+              and with every job scored as the smallest architecture, so
+              that rows are invalid; times from CUDA events (median of 25
+              calls, with a cold L2 and a warm one) and from torch.profiler
+              (CUPTI), beside the bound (`bound_ms`)
   4. explore  paper Algorithm 1 at full width: AlexNet-CIFAR training at
               batch 64 (29 workloads) over the 8-architecture quickstart
-              space, `MapperConfig(max_mappings=20000, seed=0)`; the
+              space, `MapperConfig(max_mappings=20000, seed=0)`, traced,
+              three runs of each engine in turns (cuda, torch, cuda, ...),
+              medians and each engine's split by span; the
               single-architecture kernel must launch, and the winners must
               equal those of the plain oracle (`backend="torch"`); a
               profiled run over two architectures gives the device's busy
               share
   5. fused    `fused_best` over the 8 architectures x 24 distinct
-              workloads, no-bypass mapspaces, traced (pack, copies,
-              kernel, validity); the multi-architecture kernel must
-              launch, and the winners must equal the oracle's
+              workloads, no-bypass mapspaces, traced (copies, kernel),
+              three runs of each engine in turns, medians; the
+              multi-architecture kernel must launch, and the winners must
+              equal the oracle's
   6. flash    both flash-attention kernels against their plain version
               on the card, each case on the route `choose_route` names
               (printed, and checked against the route counters): the
@@ -115,13 +125,14 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-SECTOR_BYTES = 32            # the smallest read the memory system serves
-# Float operations the kernel does per mapping row for S = 21 slots and 3
-# chain pairs, as the note at the top of the .cu file counts them: about
-# 245 arithmetic (at most 42 of them the psum products) and 84 compares.
-# The bound is set by bytes by more than an order of magnitude, so the
-# count only has to be of the right size.
-FLOPS_PER_ROW = 330
+# Floating-point operations the mapspace kernel does per row for the
+# spatial template (L = 4, 21 slots, 3 chain pairs): about 330 to score
+# (245 arithmetic, 84 compares) and 370 to derive the rows (tile extents,
+# slot products, tile and fresh words, instance counts) and check validity
+# (the last ~100 in double, counted here at the float32 rate).  The bound
+# is set by bytes by an order of magnitude, so the count only has to be of
+# the right size.
+FLOPS_PER_ROW = 700
 CYC_RTOL, EN_RTOL = 1e-5, 1e-4
 N_TIMED = 25
 L2_FLUSH_BYTES = 256 << 20   # > 5x the H100's 50 MB L2
@@ -479,37 +490,47 @@ def top_activities(by_name: dict, n: int = 5) -> str:
                      for name, (t, k) in top)
 
 
-def bound_ms(tensors, n_rows: int):
-    """The least time the card could take: the bytes the function needs
-    at HBM bandwidth, or its float operations at the float32 peak,
-    whichever is larger.  Every input but `fresh` is read once in full and
-    both outputs are written once.  Of `fresh` [B, L1, S] the function
-    needs one float per (row, level) whose input has an active relevant
-    loop, as this run's data says; each is a 32-byte sector of its own,
-    since rows lie 4 * L1 * S bytes apart."""
-    bounds, rel_i, fresh = tensors[0], tensors[2], tensors[7]
-    act = (rel_i > 0) & (bounds > 1)
-    n_fresh = sum(int(act[:, :7 * (j + 1)].any(1).sum())
-                  for j in range(fresh.shape[1]))
-    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
-              - fresh.numel() * fresh.element_size()
-              + SECTOR_BYTES * n_fresh + 8 * n_rows)
+def bound_ms(tensors):
+    """The least time the card could take: the bytes the function needs at
+    HBM bandwidth, or its float operations at the float32 peak, whichever
+    is larger.  It reads each input once (`factors` and `rank` int32,
+    `store` bool, the job records, the row offsets) and writes cycles,
+    energy (float32) and validity (bool) once."""
+    n_rows = tensors[0].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + 9 * n_rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = FLOPS_PER_ROW * n_rows / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(name: str, out, ref):
-    """Kernel (cycles, energy) against the plain version -> max abs err."""
-    (c, e), (cr, er) = out, ref
+    """Kernel (cycles, energy, valid) against the plain version -> (max abs
+    err, max rel err); validity must be equal."""
+    (c, e, v), (cr, er, vr) = out, ref
     torch.cuda.synchronize()
     if not (torch.isfinite(c).all() and torch.isfinite(e).all()):
         raise RuntimeError(f"{name}: non-finite kernel output")
     torch.testing.assert_close(c, cr, rtol=CYC_RTOL, atol=0)
     torch.testing.assert_close(e, er, rtol=EN_RTOL, atol=0)
+    if not torch.equal(v, vr):
+        raise RuntimeError(f"{name}: validity differs from the plain "
+                           f"version in {int((v != vr).sum())} rows")
     rel = max(float(((c - cr).abs() / cr.abs()).max()),
               float(((e - er).abs() / er.abs()).max()))
     return max(float((c - cr).abs().max()), float((e - er).abs().max())), rel
+
+
+def _multi_inputs(parts, dev, rows=None):
+    """[(HwStatic, PackedMapspace)] -> the multi-job kernel's tensors, the
+    first `rows` rows of each mapspace (all by default)."""
+    from repro_torch.kernels.mapspace_eval import ops
+    pms = [p for _, p in parts]
+    offsets = np.cumsum([0] + [len(p.factors[:rows]) for p in pms])
+    host = [np.concatenate([getattr(p, k)[:rows] for p in pms])
+            for k in ("factors", "rank", "store")]
+    host += [np.stack([ops.job_record(st) for st, _ in parts]),
+             offsets.astype(np.int32)]
+    return [torch.from_numpy(a).to(dev) for a in host]
 
 
 def kernel_phase(archs, workload, dev):
@@ -521,40 +542,53 @@ def kernel_phase(archs, workload, dev):
     packed = {hw.name: build_packed_mapspace(workload, hw, cfg)
               for hw in archs}
     pm = packed[CHECK_ARCH]
-    arrays, static, n = ops.pack_for_kernel_arrays(pm.static, pm.factors,
-                                                   pm.rank)
-    single = [torch.from_numpy(a).to(dev) for a in arrays]
-    fused, n_multi = ops.pack_for_kernel_multi(
-        [(p.static, p.factors, p.rank) for p in packed.values()])
-    multi = [torch.from_numpy(a).to(dev) for a in fused]
+    layout = ops.layout_of(pm.static)
+    on = lambda *a: [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in a]
+    single = on(pm.factors, pm.rank, pm.store, ops.job_record(pm.static))
+    parts = [(p.static, p) for p in packed.values()]
+    smallest = min(packed.values(), key=lambda p: (p.static.fanout,
+                                                   p.static.sizes)).static
     cases = [
         ("mapspace_eval_single", "src/repro/kernels/mapspace_eval/"
-         "kernel.py:133", single, n,
-         lambda t: kernel.mapspace_eval_fwd(*t, static=static),
-         lambda t: ref.score_ref(*t, static=static)),
+         "kernel.py:133", single, on(*(a[:37] for a in (
+             pm.factors, pm.rank, pm.store)), ops.job_record(pm.static)),
+         on(pm.factors, pm.rank, pm.store, ops.job_record(smallest)),
+         lambda t: kernel.mapspace_eval_fwd(*t, layout=layout),
+         lambda t: ref.score_ref(*t, layout=layout)),
         ("mapspace_eval_multi", "src/repro/kernels/mapspace_eval/"
-         "kernel.py:163", multi, n_multi,
-         lambda t: kernel.mapspace_eval_multi_fwd(*t),
-         lambda t: ref.score_multi_ref(*t)),
+         "kernel.py:163", _multi_inputs(parts, dev),
+         _multi_inputs(parts, dev, rows=37),
+         _multi_inputs([(smallest, p) for p in packed.values()], dev),
+         lambda t: kernel.mapspace_eval_multi_fwd(*t, layout=layout),
+         lambda t: ref.score_multi_ref(*t, layout=layout)),
     ]
     records = {}
-    for name, replaces, tensors, rows, run, plain in cases:
+    for name, replaces, tensors, ragged, small, run, plain in cases:
         err, rel = compare(name, run(tensors), plain(tensors))
-        ragged = [t[:37].contiguous() for t in tensors]
-        compare(name + "[:37]", run(ragged), plain(ragged))
+        compare(name + " (37 rows a job)", run(ragged), plain(ragged))
+        out = run(small)
+        compare(name + " (as the smallest architecture)", out, plain(small))
+        n_invalid = int((~out[2]).sum())
+        if not n_invalid:
+            raise RuntimeError(f"{name}: no invalid row to check validity")
+        rows, n_jobs = tensors[0].shape[0], tensors[3].reshape(
+            -1, ref.REC_DOUBLES).shape[0]
         ms = device_times_ms(lambda: run(tensors), cold=True)
         warm_ms = device_times_ms(lambda: run(tensors))
         plain_ms = device_times_ms(lambda: plain(tensors), cold=True)
         plain_warm_ms = device_times_ms(lambda: plain(tensors))
-        b_ms, b_by = bound_ms(tensors, rows)
+        b_ms, b_by = bound_ms(tensors)
         cupti = [device_busy(lambda: [f(tensors) for _ in range(N_TIMED)])
                  for f in (run, plain)]
-        say("kernels", f"{name}: {rows} rows, max abs err {err:.3g} "
-            f"(max rel {rel:.3g}; 37-row slice ok); events, cold L2: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; warm L2: kernel "
-            f"{warm_ms:.4f} ms, plain {plain_warm_ms:.4f} ms; bound "
-            f"{b_ms:.5f} ms ({b_by}); profiler, warm, device activity per "
-            f"call: kernel {cupti[0][3] / N_TIMED * 1e3:.4f} ms in "
+        say("kernels", f"{name}: {rows} rows, {n_jobs} job(s); max rel err "
+            f"{rel:.3g} (max abs {err:.3g}), validity equal; 37 rows a job "
+            f"ok; as the smallest architecture {n_invalid} invalid rows, "
+            f"validity equal; events, cold L2: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms, plain "
+            f"{plain_warm_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
+            f"profiler, warm, device activity per call: kernel "
+            f"{cupti[0][3] / N_TIMED * 1e3:.4f} ms in "
             f"{cupti[0][2] / N_TIMED:.0f} op(s), plain "
             f"{cupti[1][3] / N_TIMED * 1e3:.4f} ms in "
             f"{cupti[1][2] / N_TIMED:.0f} ops")
@@ -574,37 +608,70 @@ def _winners(result):
               for w in a.per_workload]) for a in result.all_archs]
 
 
-def explore_phase(task, archs, dev):
-    """Algorithm 1 on the card, kernel engine then oracle -> launches."""
-    from repro_torch.core import MapperConfig, explore
+def engine_turns(run, n: int = 3):
+    """`run(backend)` -> result, traced: n runs of each engine in turns
+    (cuda, torch, cuda, ...) -> {engine: (median wall s, [walls], span
+    times of the median run, counters of it, launches of it, result)}."""
     from repro_torch.obs import Tracer, activate
+    runs = {"cuda": [], "torch": []}
+    for _ in range(n):
+        for engine in ("cuda", "torch"):
+            tr = Tracer()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with activate(tr):
+                out = run(engine)
+            wall = time.perf_counter() - t0
+            runs[engine].append((wall, tr.span_times(),
+                                 tr.metrics.snapshot()["counters"],
+                                 launch_counts(), out))
+    summary = {}
+    for engine, rs in runs.items():
+        walls = [r[0] for r in rs]
+        mid = sorted(rs, key=lambda r: r[0])[len(rs) // 2]
+        summary[engine] = (statistics.median(walls), walls) + mid[1:]
+    return summary
+
+
+def _split(spans: dict, names, wall: float, outer) -> str:
+    """'name s' for each (name, span) and the rest of `wall` outside the
+    spans `outer`."""
+    rest = wall - sum(spans.get(k, 0.0) for k in outer)
+    return ", ".join([f"{k} {spans.get(v, 0.0):.3f} s" for k, v in names]
+                     + [f"rest {rest:.3f} s"])
+
+
+def _walls(walls) -> str:
+    return "[" + ", ".join(f"{w:.3f}" for w in walls) + "]"
+
+
+def explore_phase(task, archs, dev):
+    """Algorithm 1 on the card, each engine three times in turns ->
+    launches of the kernel engine's median run."""
+    from repro_torch.core import MapperConfig, explore
     cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0)
-    tr = Tracer()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    with activate(tr):
-        out = explore(task, archs, goal="edp", cfg=cfg, device=dev)
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    res = engine_turns(lambda engine: explore(
+        task, archs, goal="edp", cfg=cfg, backend=engine, device=dev))
+    (wall, walls, sp, m, launches, out) = res["cuda"]
+    (ref_wall, ref_walls, ref_sp, _, ref_launches, ref) = res["torch"]
     if launches["single"] == 0:
         raise RuntimeError("explore launched no single-architecture kernel")
-    sp = tr.span_times()
-    m = tr.metrics.snapshot()["counters"]
-    split = {k: sp.get(v, 0.0) for k, v in (
-        ("mapspace build", "pack"), ("mapspace validate", "validate"),
-        ("kernel pack (host)", "kernel.pack"), ("copy to device",
-                                                "kernel.h2d"),
-        ("kernel", "kernel.run"), ("copy back", "kernel.d2h"),
-        ("validity (host)", "backend.validity"),
-        ("oracle (bypass rows, incl. copies)", "batch_eval.scores"))}
-    say("explore", f"backend=cuda {wall:.2f} s wall, launches {launches}, "
-        f"rows kernel {m.get('backend.rows.kernel', 0):.0f} / oracle "
-        f"{m.get('backend.rows.torch', 0):.0f}; split: "
-        + ", ".join(f"{k} {v:.2f} s" for k, v in split.items()))
-    t0 = time.perf_counter()
-    ref = explore(task, archs, goal="edp", cfg=cfg, backend="torch",
-                  device=dev)
-    say("explore", f"backend=torch {time.perf_counter() - t0:.2f} s wall")
+    if ref_launches["single"] or ref_launches["multi"]:
+        raise RuntimeError("the oracle engine launched the kernel")
+    common = (("mapspace build", "pack"), ("mapspace validate", "validate"))
+    say("explore", f"backend=cuda median {wall:.2f} s of {_walls(walls)}, "
+        f"launches {launches}, rows kernel "
+        f"{m.get('backend.rows.kernel', 0):.0f} / oracle "
+        f"{m.get('backend.rows.torch', 0):.0f}; split: " + _split(
+            sp, common + (
+                ("scoring", "backend.cuda"), ("copy to device", "kernel.h2d"),
+                ("kernel", "kernel.run"), ("copy back", "kernel.d2h"),
+                ("oracle (bypass rows, incl. copies)", "batch_eval.scores")),
+            wall, ("pack", "validate", "backend.cuda")))
+    say("explore", f"backend=torch median {ref_wall:.2f} s of "
+        f"{_walls(ref_walls)}; split: " + _split(
+            ref_sp, common + (("scoring", "backend.torch"),), ref_wall,
+            ("pack", "validate", "backend.torch")))
     for a in out.all_archs:
         n = a.network
         if not all(map(lambda v: v > 0 and v < float("inf"),
@@ -628,9 +695,9 @@ def explore_phase(task, archs, dev):
 
 
 def fused_phase(workloads, archs, dev):
-    """`fused_best` over every (arch, distinct workload) pair -> launches."""
+    """`fused_best` over every (arch, distinct workload) pair, each engine
+    three times in turns -> launches of the kernel engine's median run."""
     from repro_torch.core import MapperConfig, build_packed_mapspace
-    from repro_torch.obs import Tracer, activate
     from repro_torch.search import MapspaceJob, fused_best
     cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0,
                        enable_bypass=False)
@@ -640,34 +707,29 @@ def fused_phase(workloads, archs, dev):
             for hw in archs for wl in workloads]
     build_s = time.perf_counter() - t0
     rows = sum(j.n_rows() for j in jobs)
-    tr = Tracer()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    with activate(tr):
-        out = fused_best(jobs, "edp", device=dev)
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    res = engine_turns(lambda engine: fused_best(jobs, "edp", device=dev,
+                                                 backend=engine))
+    (wall, walls, sp, _, launches, out) = res["cuda"]
+    (ref_wall, ref_walls, ref_sp, _, _, ref) = res["torch"]
     if launches["multi"] == 0:
         raise RuntimeError("fused_best launched no multi-architecture "
                            "kernel")
-    sp = tr.span_times()
-    split = {k: sp.get(v, 0.0) for k, v in (
-        ("kernel pack (host)", "kernel.pack"), ("copy to device",
-                                                "kernel.h2d"),
-        ("kernel", "kernel.run"), ("copy back", "kernel.d2h"),
-        ("validity (host)", "fused.validity"))}
-    split["rest (grouping, scores, argmin)"] = wall - sum(split.values())
-    say("fused", f"backend=cuda {wall:.3f} s wall, split: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
-    t0 = time.perf_counter()
-    ref = fused_best(jobs, "edp", device=dev, backend="torch")
-    ref_s = time.perf_counter() - t0
+    copies = (("copy to device", "kernel.h2d"), ("kernel", "kernel.run"),
+              ("copy back", "kernel.d2h"))
+    say("fused", f"backend=cuda median {wall:.3f} s of {_walls(walls)}; "
+        f"split (rest: grouping, records, concatenation, scores, argmin): "
+        + _split(sp, (("kernel groups", "fused.kernel-group"),) + copies,
+                 wall, [v for _, v in copies]))
+    say("fused", f"backend=torch median {ref_wall:.3f} s of "
+        f"{_walls(ref_walls)}; split: " + _split(
+            ref_sp, (("groups", "fused.torch-group"),), ref_wall,
+            ("fused.torch-group",)))
     if [(b.tag, b.index) for b in out] != [(b.tag, b.index) for b in ref]:
         raise RuntimeError("fused_best winners differ between the kernel "
                            "and the oracle")
     say("fused", f"{len(jobs)} jobs, {rows} rows (built in {build_s:.2f} s); "
         f"backend=cuda {wall:.3f} s, launches {launches}; backend=torch "
-        f"{ref_s:.3f} s; winners equal the oracle's")
+        f"{ref_wall:.3f} s; winners equal the oracle's")
     return launches["multi"]
 
 

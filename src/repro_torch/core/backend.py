@@ -17,10 +17,10 @@ hierarchy, so only *no-bypass* mappings are eligible; a batch that mixes
 bypass and no-bypass mappings is split, and the scores merged back in
 order.
 
-The kernel emits (cycles, energy) only; validity (fanout + buffer-capacity
-checks) is closed-form per mapping and computed here on the host with the
-same formulas `evaluate_batch` uses, so both engines agree on the valid set
-exactly.
+The kernel emits (cycles, energy, valid): it checks fanout and buffer
+capacity per row in double, with the formulas `evaluate_batch` uses, so
+both engines agree on the valid set exactly.  `validity_mask_arrays` is
+the same check on the host, the reference the tests hold the kernel to.
 """
 from __future__ import annotations
 
@@ -64,9 +64,8 @@ def eligibility_mask(mappings) -> np.ndarray:
 
 def validity_mask_arrays(st: HwStatic, factors: np.ndarray,
                          store: np.ndarray) -> np.ndarray:
-    """Fanout + buffer-capacity validity over packed arrays,
-    formula-identical to the checks in `evaluate_batch` (the kernel does
-    not emit validity)."""
+    """Fanout + buffer-capacity validity over packed arrays on the host,
+    formula-identical to the checks in `evaluate_batch` and in the kernel."""
     f = np.asarray(factors, np.float64)
     store = np.asarray(store)
     B = f.shape[0]
@@ -145,12 +144,9 @@ def score_mapspace(mappings, goal: str = "edp", backend: str = "auto", *,
                  torch_rows=n - n_kernel):
         if mask.any():
             idx = np.flatnonzero(mask)
-            cycles, energy = mapspace_eval_arrays(st, factors[idx],
-                                                  rank[idx], device=dev)
+            cycles, energy, valid[idx] = mapspace_eval_arrays(
+                st, factors[idx], rank[idx], store[idx], device=dev)
             scores[idx] = goal_scores(cycles, energy, goal)
-            with tr.span("backend.validity", rows=int(idx.shape[0])):
-                valid[idx] = validity_mask_arrays(st, factors[idx],
-                                                  store[idx])
         if not mask.all():
             idx = np.flatnonzero(~mask)
             s, v = batch_scores_arrays(st, factors[idx], rank[idx],

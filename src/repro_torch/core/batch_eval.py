@@ -139,9 +139,8 @@ GOAL_KEY = {"latency": "cycles", "energy": "energy_pj", "edp": "edp"}
 
 def tile_words_np(st: HwStatic, tile):
     """tile: [..., 7] float -> [..., 3] words in TENSORS order.  Numpy
-    twin of `_tile_words`, shared by the kernel packer
-    (kernels/mapspace_eval/ops.py), `core.backend.validity_mask_arrays` and
-    `core.mapspace_array`."""
+    twin of `_tile_words`, shared by `core.backend.validity_mask_arrays`
+    and `core.mapspace_array`."""
     n, m, c, r, s, e, f = (tile[..., i] for i in range(7))
     u, v = st.stride
     dr, ds = st.dilation

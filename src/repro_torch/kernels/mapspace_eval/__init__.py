@@ -1,3 +1,3 @@
 """TRIM mapspace scoring: `csrc/mapspace_eval.cu` (kernel), `kernel.py`
 (build, bind, launch, launch counts), `ref.py` (plain PyTorch version),
-`ops.py` (host packer and entry points)."""
+`ops.py` (job records and entry points)."""

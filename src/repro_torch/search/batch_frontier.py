@@ -25,8 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..core.backend import (eligibility_mask, goal_scores, resolve_backend,
-                            validity_mask_arrays)
+from ..core.backend import eligibility_mask, goal_scores, resolve_backend
 from ..core.batch_eval import (GOAL_KEY, evaluate_batch_multi, make_static,
                                note_batch_dispatch, pack, params_of, sig_of)
 from ..core.designer import HardwareDesc
@@ -163,20 +162,14 @@ def fused_best(jobs: Sequence[MapspaceJob], goal: str = "edp",
 
 def _kernel_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
                   goal: str, out: List[Optional[JobBest]], dev) -> None:
-    """Score one BatchSig group of kernel-eligible jobs with one
-    multi-architecture kernel launch.  Validity is closed-form per job
-    (the kernel emits only cycles/energy)."""
+    """Score one BatchSig group of kernel-eligible jobs, validity
+    included, with one multi-architecture kernel launch."""
     from ..kernels.mapspace_eval.ops import mapspace_eval_multi
     counts = [arrays[i].factors.shape[0] for i in idxs]
-    cycles, energy = mapspace_eval_multi(
-        [(arrays[i].st, arrays[i].factors, arrays[i].rank) for i in idxs],
-        device=dev)
+    cycles, energy, valid = mapspace_eval_multi(
+        [(arrays[i].st, arrays[i].factors, arrays[i].rank, arrays[i].store)
+         for i in idxs], device=dev)
     scores = goal_scores(cycles, energy, goal)
-    with current_tracer().span("fused.validity", rows=sum(counts)):
-        valid = np.concatenate([validity_mask_arrays(arrays[i].st,
-                                                     arrays[i].factors,
-                                                     arrays[i].store)
-                                for i in idxs])
     _assign_best(idxs, counts, jobs, np.where(valid, scores, np.inf), out)
 
 

@@ -113,8 +113,48 @@ def test_cuda_engine_splits_and_counts_rows():
     assert counters["backend.rows.kernel"] == n_kernel
     assert counters["backend.rows.torch"] == len(port) - n_kernel
     names = {s.name for s in tr.buffer.snapshot()}
-    assert {"backend.cuda", "kernel.pack", "kernel.run",
+    assert {"backend.cuda", "kernel.h2d", "kernel.run", "kernel.d2h",
             "batch_eval.scores"} <= names
+    assert not names & {"kernel.pack", "backend.validity"}
+
+
+def _oversized(wi, n=80):
+    """A large architecture's no-bypass rows with a small one's static:
+    some rows exceed its fan-out or buffers.  -> (JAX PackedMapspace,
+    port PackedMapspace)."""
+    small, _ = _both(wi, bypass=False)
+    big, _ = _both(wi, bypass=False, n=n, hw=_arch(
+        num_pes=256, rf_words=256, gbuf_words=64 * 1024))
+    pm = dataclasses.replace(big, static=small.static)
+    port = convert.packed_from_arrays(
+        convert.static_from_dict(dataclasses.asdict(small.static)),
+        pm.factors, pm.rank, pm.store, pm.eligible)
+    return pm, port
+
+
+def test_cuda_engine_takes_validity_from_kernel(monkeypatch):
+    """The cuda engine's valid set is the kernel's, equal to the JAX
+    package's host check, and the port's host check is not called."""
+    pm, port = _oversized(2)
+    want = jbackend.validity_mask_arrays(pm.static, pm.factors, pm.store)
+    assert 0 < want.sum() < len(want), "needs valid and invalid rows"
+
+    def host_check(*a, **k):
+        raise AssertionError("the cuda engine called the host check")
+    monkeypatch.setattr(tbackend, "validity_mask_arrays", host_check)
+    st, vt = tbackend.score_mapspace(port, "edp", "cuda", device="cpu")
+    np.testing.assert_array_equal(vt, want)
+    sj, vj = jbackend.score_mapspace(pm, "edp", backend="pallas",
+                                     interpret=True)
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_allclose(st, sj, rtol=RTOL)
+    from repro_torch.search import batch_frontier
+    assert not hasattr(batch_frontier, "validity_mask_arrays")
+    jobs = [MapspaceJob(tag=0, hw=None, workload=None, packed=port)]
+    best = fused_best(jobs, "edp", device="cpu", backend="cuda")[0]
+    ref = jax_fused_best([JaxJob(tag=0, hw=None, workload=TW.intra[2],
+                                 packed=pm)], "edp", backend="pallas")[0]
+    assert (best.index, want[best.index]) == (ref.index, True)
 
 
 def _jobs(bypass):
