@@ -32,17 +32,30 @@ catches its own failure.
               batch 64 (29 workloads) over the 8-architecture quickstart
               space, `MapperConfig(max_mappings=20000, seed=0)`, traced,
               three runs of each engine in turns (cuda, torch, cuda, ...),
-              medians and each engine's split by span; the
-              single-architecture kernel must launch, and the winners must
-              equal those of the plain oracle (`backend="torch"`); a
-              profiled run over two architectures gives the device's busy
-              share
+              medians and each engine's split by span and by driver phase
+              (`explore` is `run_search(strategy="exhaustive",
+              batching="per-arch")`); the single-architecture kernel must
+              launch, and the winners must equal those of the plain oracle
+              (`backend="torch"`); a profiled run over two architectures
+              gives the device's busy share
   5. fused    `fused_best` over the 8 architectures x 24 distinct
               workloads, no-bypass mapspaces, traced (copies, kernel),
               three runs of each engine in turns, medians; the
               multi-architecture kernel must launch, and the winners must
               equal the oracle's
-  6. flash    both flash-attention kernels against their plain version
+  6. search   `run_search` at the fused phase's setup (8 architectures,
+              no-bypass mapspaces), traced, each run's wall and driver
+              phase split (`report.phase_times`): (a) exhaustive, fused,
+              streamed (2 architectures a round) on "cuda" and on "torch":
+              the multi-architecture kernel must launch, and both engines
+              must give the same best, mappings, history and frontier;
+              (b) the same on "cuda" with `overlap=False`, equal to (a);
+              (c) anneal at budget 4, per-arch batching, with a disk cache
+              in a temporary directory, cold then warm: the
+              single-architecture kernel must launch in the cold run, the
+              warm run is all hits with the same report, and the run's
+              manifest names this card
+  7. flash    both flash-attention kernels against their plain version
               on the card, each case on the route `choose_route` names
               (printed, and checked against the route counters): the
               serving prefill's shape (B=4, S=2048, 9 query on 3 KV heads
@@ -55,7 +68,7 @@ catches its own failure.
               before the tensor-core one), and one PyTorch call computing
               the same function (`scaled_dot_product_attention`, timed
               here only, never called by the port)
-  7. serve    smollm-135m at full width (bf16, random weights from a seed):
+  8. serve    smollm-135m at full width (bf16, random weights from a seed):
               (a) the prefill `forward(tokens [4, 2048], logits_mode=
               "last")` with the kernel installed must launch the
               tensor-core kernel once per layer (30) and nothing else,
@@ -66,7 +79,7 @@ catches its own failure.
               (prompts of 16-128 tokens, 32 new tokens each), and
               teacher-forced `decode_step` on a 128-token prompt matches
               the prefill's last logits
-  8. ssd      both SSD-scan kernels against their plain version
+  9. ssd      both SSD-scan kernels against their plain version
               (`ssd_chunk_scan_streaming`, TF32 off) on the card, at 2e-4,
               and against it in float64: each case on the route
               `choose_route` names (checked against the counters) and, where
@@ -75,11 +88,11 @@ catches its own failure.
               N=128, chunk 128), zamba2-2.7b's layer (B=1, N=64), the JAX
               kernel test's four shapes, strided views cut from a
               conv-output-shaped tensor, T of one chunk, an odd number of
-              chunks and G=2 (40 heads a group); each timed as in phase 6,
+              chunks and G=2 (40 heads a group); each timed as in phase 7,
               both routes in the same run, beside the bound that applies
               to each (`ssd_bound_ms`) and the plain version's time; the
               profiler's time of one op call sums its sub-kernels
-  9. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
+ 10. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
               weights from a CUDA generator seeded with 0): (a) the prefill
               `forward(tokens [4, 2048], logits_mode="last")` must launch
               the SSD op 64 times, all on route "tc", and nothing else
@@ -91,13 +104,13 @@ catches its own failure.
               tolerance), teacher-forced `decode_step` (the pure
               recurrence) over 128 tokens matches the kernel prefill's
               last logits
- 10. hybrid   zamba2-2.7b at full width and depth (54 Mamba2 layers, the
+ 11. hybrid   zamba2-2.7b at full width and depth (54 Mamba2 layers, the
               shared GQA block after every 6, window 4096): the prefill
               [1, 2048] with the flash hook installed calls the SSD op 54
               times, all on route "tc", and the flash kernel never (the
               window keeps
               it off, as in the reference's `sdpa`); decode over one chunk
-              matches the prefill in float32, as in phase 9
+              matches the prefill in float32, as in phase 10
 
 Phase 2 builds the three kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -143,6 +156,7 @@ ARCH_SPACE = dict(num_pes=(64, 256), rf_words=(128, 256),
                   zero_skip=True)
 CHECK_ARCH = "pe256_rf256_gb131072"     # the issue's intra[2] architecture
 MAX_MAPPINGS = 20000
+SEARCH_ROUND, SEARCH_BUDGET = 2, 4
 SOURCE = "src/repro_torch/kernels/mapspace_eval/csrc/mapspace_eval.cu"
 
 # Flash attention and serving.  Peaks for the bound: bf16 on the tensor
@@ -216,7 +230,7 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
 # Decode against prefill for the Mamba2 models runs in float32 (the same
 # weights, cast): with random weights their bf16 rounding is amplified
 # layer over layer, so that mamba2-2.7b's bf16 prefill lies ~40% of the
-# logits' range from its float32 prefill through the same kernel (phase 9
+# logits' range from its float32 prefill through the same kernel (phase 10
 # (c) prints it; PERF.md, PR 13), and no bf16 comparison through the full
 # depth can check a kernel.  In float32 the chunked scan and the recurrence
 # sum in other orders and are amplified alike: ~1e-4 of the range
@@ -645,6 +659,13 @@ def _walls(walls) -> str:
     return "[" + ", ".join(f"{w:.3f}" for w in walls) + "]"
 
 
+def _phases(times: dict) -> str:
+    """'phase s' for each driver phase in `times`, in pipeline order."""
+    from repro_torch.obs import DRIVER_PHASES
+    return ", ".join(f"{k} {times[k]:.3f}" for k in DRIVER_PHASES
+                     if k in times)
+
+
 def explore_phase(task, archs, dev):
     """Algorithm 1 on the card, each engine three times in turns ->
     launches of the kernel engine's median run."""
@@ -672,6 +693,9 @@ def explore_phase(task, archs, dev):
         f"{_walls(ref_walls)}; split: " + _split(
             ref_sp, common + (("scoring", "backend.torch"),), ref_wall,
             ("pack", "validate", "backend.torch")))
+    for engine, spans in (("cuda", sp), ("torch", ref_sp)):
+        say("explore", f"backend={engine} median run's driver phases (s): "
+            + _phases(spans))
     for a in out.all_archs:
         n = a.network
         if not all(map(lambda v: v > 0 and v < float("inf"),
@@ -731,6 +755,100 @@ def fused_phase(workloads, archs, dev):
         f"backend=cuda {wall:.3f} s, launches {launches}; backend=torch "
         f"{ref_wall:.3f} s; winners equal the oracle's")
     return launches["multi"]
+
+
+def _report_key(report):
+    """What two equal search runs share: best coordinates and value, the
+    best architecture's mappings, history rows and the frontier."""
+    return (report.best_coords, report.goal_value(),
+            [(w.mapping.factors, w.mapping.orders, w.mapping.bypass)
+             for w in report.best.per_workload],
+            [(r["step"], r["coords"], r["value"], r["objectives"],
+              r["feasible"]) for r in report.history],
+            sorted(report.pareto.values()))
+
+
+def search_phase(task, archs, dev):
+    """`run_search` on the card: (a) fused exhaustive streamed on both
+    engines, (b) synchronous, (c) anneal per-arch with a disk cache, cold
+    and warm -> (single-architecture kernel launches in (c) cold,
+    multi-architecture kernel launches in (a) on "cuda")."""
+    import tempfile
+    from repro_torch.core import MapperConfig
+    from repro_torch.search import run_search
+    cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0,
+                       enable_bypass=False)
+
+    def run(engine, **kw):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = run_search(task, archs, goal="edp", cfg=cfg, trace=True,
+                            backend=engine, device=dev, **kw)
+        return report, time.perf_counter() - t0, launch_counts()
+
+    def line(report, wall, launches):
+        return (f"{wall:.3f} s wall, {report.n_evaluated} archs, "
+                f"{report.n_enumerations} mapspaces scored, "
+                f"{report.n_cache_hits} cache hits, launches "
+                f"{{single: {launches['single']}, multi: "
+                f"{launches['multi']}}}; phases (s): "
+                + _phases(report.phase_times))
+
+    t_phase = time.perf_counter()
+    streamed = {e: run(e, strategy="exhaustive", batching="fused",
+                       round_size=SEARCH_ROUND, overlap=True)
+                for e in ("cuda", "torch")}
+    for engine, (report, wall, launches) in streamed.items():
+        if not report.overlap:
+            raise RuntimeError("the exhaustive fused search did not stream")
+        say("search", f"(a) backend={engine} streamed, {SEARCH_ROUND} "
+            f"archs a round: " + line(report, wall, launches))
+    (got, _, launches), (want, _, ref_launches) = (streamed["cuda"],
+                                                   streamed["torch"])
+    if launches["multi"] == 0:
+        raise RuntimeError("the fused search launched no "
+                           "multi-architecture kernel")
+    if ref_launches["single"] or ref_launches["multi"]:
+        raise RuntimeError("the oracle engine launched the kernel")
+    if _report_key(got) != _report_key(want):
+        raise RuntimeError("the fused search differs between the kernel "
+                           "and the oracle")
+    say("search", f"(a) best {got.best.hardware.name} edp "
+        f"{got.goal_value():.6g}; frontier {len(got.pareto)} archs; both "
+        f"engines give the same best, mappings, history and frontier")
+    sync, wall, sync_launches = run("cuda", strategy="exhaustive",
+                                    batching="fused",
+                                    round_size=SEARCH_ROUND, overlap=False)
+    if sync.overlap or _report_key(sync) != _report_key(got):
+        raise RuntimeError("the synchronous search differs from the "
+                           "streamed one")
+    say("search", f"(b) backend=cuda synchronous: "
+        + line(sync, wall, sync_launches) + "; equal to (a)")
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(strategy="anneal", budget=SEARCH_BUDGET, seed=0,
+                  batching="per-arch", round_size=SEARCH_ROUND, cache=tmp)
+        cold, cold_wall, cold_launches = run("cuda", **kw)
+        warm, warm_wall, warm_launches = run("cuda", **kw)
+    if cold_launches["single"] == 0:
+        raise RuntimeError("the per-arch search launched no "
+                           "single-architecture kernel")
+    if warm.n_cache_misses or warm.n_cache_hits != cold.n_cache_misses \
+            or _report_key(warm) != _report_key(cold):
+        raise RuntimeError(f"the warm search is not all hits with the "
+                           f"same report: {warm.n_cache_hits} hits, "
+                           f"{warm.n_cache_misses} misses")
+    m = warm.manifest
+    if m.device_name != torch.cuda.get_device_name(0) \
+            or m.compute_capability != "9.0":
+        raise RuntimeError(f"the manifest names {m.device_name} "
+                           f"{m.compute_capability}")
+    say("search", f"(c) anneal, budget {SEARCH_BUDGET}, per-arch, disk "
+        f"cache: cold " + line(cold, cold_wall, cold_launches))
+    say("search", f"(c) warm " + line(warm, warm_wall, warm_launches)
+        + f"; all hits, same report; manifest {m.run_id}: {m.device}, "
+        f"{m.device_name}, capability {m.compute_capability}")
+    say("search", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return cold_launches["single"], launches["multi"]
 
 
 def flash_bound_ms(b, s, h, hkv, d, dtype, causal=True):
@@ -817,24 +935,25 @@ def flash_phase(dev, cases=FLASH_CASES):
         plain_warm_ms = device_times_ms(plain)
         library_ms = device_times_ms(library, cold=True)
         b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype, causal)
-        cupti = [device_busy(lambda: [f() for _ in range(N_TIMED)])
-                 for f in (run, plain, library, simt)]
+        # the profiler may record no launch of a kernel in a burst:
+        # profile until it has, and report "not recorded" if it never does
+        (tc_prof, (kern_ms, _, kern_n)), (_, (simt_prof_ms, _, _)) = [
+            profile_kernels(lambda f=f: [f() for _ in range(N_TIMED)],
+                            (FLASH_KERNEL_NAMES[r],))
+            for f, r in ((run, "wgmma"), (simt, "simt"))]
+        cupti = [tc_prof] + [device_busy(lambda f=f: [f() for _ in
+                                                      range(N_TIMED)])
+                             for f in (plain, library)]
         prof = [c[3] / N_TIMED * 1e3 for c in cupti]
-        per_launch = []
-        for c, name in ((cupti[0], FLASH_KERNEL_NAMES["wgmma"]),
-                        (cupti[3], FLASH_KERNEL_NAMES["simt"])):
-            kern_s, kern_n = [v for n, v in c[4].items() if name in n][0]
-            per_launch.append((kern_s / kern_n * 1e3, kern_n))
-        (kern_ms, kern_n), (simt_prof_ms, _) = per_launch
         say("flash", f"{shape}: route {route}, max abs err {err:.3g} (tol "
             f"{tol:g}; SIMT kernel's {simt_err:.3g}, SDPA's {lib_err:.3g}); "
             f"events, cold L2: kernel {ms:.4f} ms, SIMT kernel "
             f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
             f"{library_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms, plain "
             f"{plain_warm_ms:.4f} ms; {N_TIMED} kernel calls back to back: "
-            f"{b2b_ms:.4f} ms a call; profiler, warm: kernel {kern_ms:.4f} "
+            f"{b2b_ms:.4f} ms a call; profiler, warm: kernel {_ms(kern_ms)} "
             f"ms a launch over {kern_n} launches recorded, SIMT kernel "
-            f"{simt_prof_ms:.4f} ms; device time per call: kernel "
+            f"{_ms(simt_prof_ms)} ms; device time per call: kernel "
             f"{prof[0]:.4f} ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} "
             f"ms; bound {b_ms:.5f} ms ({b_by}), kernel at "
             f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
@@ -1047,9 +1166,9 @@ def ssd_call_ms(by_name: dict, names):
     return call, per, min(counts)
 
 
-def ssd_profile(fn, names, tries: int = 3):
+def profile_kernels(fn, names, tries: int = 3):
     """`device_busy(fn)` until the profile has recorded a launch of every
-    sub-kernel in `names`, at most `tries` times -> (the last profile,
+    kernel in `names`, at most `tries` times -> (the last profile,
     `ssd_call_ms` of it)."""
     for _ in range(tries):
         prof = device_busy(fn)
@@ -1109,7 +1228,7 @@ def ssd_phase(dev, cases=SSD_CASES):
                 torch.testing.assert_close(out, want, rtol=SSD_TOL,
                                            atol=SSD_TOL)
             ms = device_times_ms(run, cold=True)
-            _, (call_ms, per, kern_n) = ssd_profile(
+            _, (call_ms, per, kern_n) = profile_kernels(
                 lambda: [run() for _ in range(N_TIMED)],
                 ssd_launched(route, t, q))
             b_ms, b_by = bounds[route]
@@ -1216,7 +1335,7 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
                                    f"{tuple(logits.shape)}")
             ms = device_times_ms(prefill, n=5)
             (wall, busy, n_ops, _, by_name), (call_ms, per, kern_n) = \
-                ssd_profile(prefill, ssd_launched("tc", PREFILL_S,
+                profile_kernels(prefill, ssd_launched("tc", PREFILL_S,
                                                   cfg.chunk))
         finally:
             attention.set_flash_impl(None)
@@ -1313,10 +1432,16 @@ def main() -> int:
     say("setup", f"AlexNet-CIFAR batch {TASK_BATCH}: {len(task.intra)} "
         f"intra workloads, {len(distinct)} distinct; {len(archs)} archs")
     records = kernel_phase(archs, task.intra[2], dev)
-    records["mapspace_eval_single"]["launches"] = explore_phase(
-        task, archs, dev)
-    records["mapspace_eval_multi"]["launches"] = fused_phase(
-        distinct, archs, dev)
+    single = {"explore": explore_phase(task, archs, dev)}
+    multi = {"fused_best": fused_phase(distinct, archs, dev)}
+    single["search"], multi["search"] = search_phase(task, archs, dev)
+    # launches on the main path: the search driver's runs (explore is its
+    # per-arch exhaustive search; the fused exhaustive search)
+    for name, paths, main_path in (("mapspace_eval_single", single,
+                                    "explore"),
+                                   ("mapspace_eval_multi", multi, "search")):
+        records[name].update(launches=paths[main_path],
+                             launches_by_path=paths)
     records["flash_attention"] = flash_phase(dev)
     records["flash_attention"]["launches"] = serve_phase(dev)
     from repro_torch.configs import get_config

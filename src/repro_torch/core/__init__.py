@@ -23,5 +23,8 @@ from .backend import (BACKENDS, best_index, eligibility_mask,
                       kernel_eligible, resolve_backend, score_mapspace)
 from .explorer import (ArchResult, ExplorationResult, GOALS, WorkloadResult,
                        evaluate_architecture, explore, find_optimal_mapping)
+from .scheduler import (SCHEDULER_FORMAT, MixDesc, MixEstimate, MixResult,
+                        make_mix, mix_estimate_for_assignment,
+                        schedule_network)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

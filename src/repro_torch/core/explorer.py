@@ -11,7 +11,9 @@ Mapspaces are packed arrays (`core.mapspace_array`), scored on `device`
 through `search.batch_frontier.per_arch_best` — the oracle, or the CUDA
 kernel for the no-bypass rows (`core.backend`).  Only each workload's
 winner is materialized as a `Mapping` and re-scored by the scalar
-evaluator.
+evaluator.  `explore` runs through `search.run_search`;
+`find_optimal_mapping` and `evaluate_architecture` score one architecture
+directly.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from .designer import HardwareDesc
 from .evaluator import Estimate, NetworkEstimate, evaluate_network
 from .mapper import MapperConfig
 from .mapping import Mapping
-from .task_analyst import TaskDescription, TaskWorkloads, analyze
+from .task_analyst import TaskDescription, TaskWorkloads
 from .workload import TENSORS, Workload
 
 GOALS: Dict[str, Callable[[Estimate], float]] = {
@@ -138,26 +140,17 @@ def explore(task: Union[TaskDescription, TaskWorkloads],
             backend: str = "auto", device="cuda") -> ExplorationResult:
     """Paper Algorithm 1 — full design-space exploration.
 
-    Every architecture is evaluated in order; the best is the first whose
-    network goal value is strictly lowest (ties keep the earlier one), the
-    selection rule of the JAX package's exhaustive search.  `backend` is
-    "auto"/"cuda" (kernel for the no-bypass rows) or "torch" (the oracle
-    only); both run on `device`.
+    Thin wrapper over `repro_torch.search.run_search` with the exhaustive
+    strategy and the per-(arch, workload) path on packed mapspaces: every
+    architecture is evaluated in order, and the best is the first whose
+    network goal value is strictly lowest (ties keep the earlier one).
+    `backend` is "auto"/"cuda" (kernel for the no-bypass rows) or "torch"
+    (the oracle only); both run on `device`.
     """
-    from .backend import resolve_backend
-    from ..device import as_device
-    resolve_backend(backend)
-    dev = as_device(device)
-    workloads = task if isinstance(task, TaskWorkloads) else analyze(task)
-    all_archs: List[ArchResult] = []
-    best: Optional[ArchResult] = None
-    for hw in arch_space:
-        res = evaluate_architecture(workloads, hw, cfg, goal, cache_level,
-                                    backend=backend, device=dev)
-        all_archs.append(res)
-        if best is None or res.goal_value(goal) < best.goal_value(goal):
-            best = res
-    if best is None:
-        raise RuntimeError("explore evaluated no architectures "
-                           "(empty space)")
-    return ExplorationResult(best=best, all_archs=all_archs, goal=goal)
+    from ..search.driver import run_search
+    report = run_search(task, list(arch_space), goal=goal, cfg=cfg,
+                        cache_level=cache_level, strategy="exhaustive",
+                        batching="per-arch", backend=backend,
+                        device=device)
+    return ExplorationResult(best=report.best, all_archs=report.all_archs,
+                             goal=goal)

@@ -28,6 +28,7 @@ asserted by the JAX package's tests/test_mapspace_array.py.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -84,6 +85,14 @@ class PackedMapspace:
 
     def materialize_all(self) -> List[Mapping]:
         return [self.materialize(i) for i in range(len(self))]
+
+    def digest(self) -> str:
+        """Content hash of the packed arrays (cache key component)."""
+        h = hashlib.sha256()
+        for a in (self.factors, self.rank, self.store):
+            h.update(np.ascontiguousarray(a).tobytes())
+            h.update(repr(a.shape).encode())
+        return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
-"""Structured tracing for the exploration path: nestable host-side spans
-and counters in a thread-safe in-memory buffer.
+"""Structured tracing for the DSE pipeline: nestable host-side spans,
+counters, JSONL + Chrome `trace_event` export.
+
+A `Tracer` records *host-side* spans into a thread-safe in-memory
+`TraceBuffer`:
 
     tr = Tracer()
-    with activate(tr):
-        explore(...)                    # library spans land in tr
+    with tr.span("score", phase=True, rows=4096):
+        ...
+    tr.export_chrome("trace.json")      # load in chrome://tracing/Perfetto
     tr.phase_times()                    # {"score": 0.41, ...} seconds
 
 Design rules:
@@ -16,28 +20,50 @@ Design rules:
     (`.cpu()`) that waits for the result — every instrumented call site in
     `core.backend` and `search.batch_frontier` copies to the host inside
     its span, so device time lands in the span that launched the work;
-  * instrumented library code (mapper, backend) reads the *ambient* tracer
-    via `current_tracer()` instead of growing a `tracer=` parameter on
-    every function; `activate(tr)` scopes it (contextvar — safe across
-    threads and nested calls).
+  * instrumented library code (mapper, backend, cache) reads the *ambient*
+    tracer via `current_tracer()` instead of growing a `tracer=` parameter
+    on every function; `activate(tr)` scopes it (contextvar — safe across
+    threads and nested searches).
 
-Spans flagged `phase=True` are non-overlapping pipeline phases (pack /
-validate / score ...); `phase_times()` sums exactly those, so nested
-detail spans never double count.
+Spans flagged `phase=True` are the driver's non-overlapping pipeline
+phases (propose / static-filter / pack / validate / score / cache-* /
+assemble / frontier-update, plus the streaming driver's prefetch-build /
+device-wait / cache-flush); `phase_times()` sums exactly those, so
+nested detail spans (kernel groups, per-lookup cache gets) never double
+count.  Phase spans never nest inside each other *on one thread*; the
+streaming driver's worker thread legitimately holds pack/validate spans
+while the main thread sits in device-wait, so summed phase time may
+exceed wall time exactly when host and device genuinely overlapped.
+`span_times()` sums every span by name, phase-flagged or not.
 """
 from __future__ import annotations
 
 import contextvars
 import dataclasses
+import io
+import json
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
+#: The driver's non-overlapping pipeline phases, in pipeline order: the
+#: one canonical source for `phase=True` span names.
+DRIVER_PHASES = ("propose", "static-filter", "pack", "validate",
+                 "cache-get", "prefetch-build", "score", "device-wait",
+                 "cache-put", "assemble", "frontier-update",
+                 "cache-flush")
 
+#: All phase-flagged span names repo-wide: the driver phases plus the
+#: serving engine's per-tick phase.
+PHASES = DRIVER_PHASES + ("serve.tick",)
+
+# ---------------------------------------------------------------------------
+# span records
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class Span:
     """One finished (or open) span.  Times are `time.perf_counter()`
-    seconds."""
+    seconds; `t_wall0` anchors the buffer to the unix clock once."""
     name: str
     t0: float
     t1: Optional[float] = None
@@ -52,6 +78,18 @@ class Span:
     def duration(self) -> float:
         return (self.t1 if self.t1 is not None else self.t0) - self.t0
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "t0": self.t0, "t1": self.t1,
+                "depth": self.depth, "parent": self.parent,
+                "index": self.index, "thread": self.thread,
+                "phase": self.phase, "attrs": self.attrs}
+
+
+def family_of(name: str) -> str:
+    """Lane grouping for the Chrome export: the part before the first
+    '.' ("backend.jnp" -> "backend"); bare names are their own family."""
+    return name.split(".", 1)[0]
+
 
 class TraceBuffer:
     """Thread-safe store of finished spans + named counters."""
@@ -60,7 +98,10 @@ class TraceBuffer:
         self._lock = threading.Lock()
         self.spans: List[Span] = []
         self.counters: Dict[str, float] = {}
+        self.t_wall0 = time.time()
+        self.t_perf0 = time.perf_counter()
 
+    # -- recording -------------------------------------------------------
     def append(self, span: Span) -> int:
         with self._lock:
             span.index = len(self.spans)
@@ -71,6 +112,7 @@ class TraceBuffer:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    # -- views -----------------------------------------------------------
     def snapshot(self) -> List[Span]:
         with self._lock:
             return list(self.spans)
@@ -80,7 +122,8 @@ class TraceBuffer:
             return len(self.spans)
 
     def phase_times(self) -> Dict[str, float]:
-        """Total seconds per phase-flagged span name."""
+        """Total seconds per phase-flagged span name (the driver's
+        non-overlapping pipeline phases — see module docstring)."""
         out: Dict[str, float] = {}
         for s in self.snapshot():
             if s.phase and s.t1 is not None:
@@ -95,10 +138,93 @@ class TraceBuffer:
                 out[s.name] = out.get(s.name, 0.0) + s.duration
         return out
 
+    # -- exports ---------------------------------------------------------
+    def to_jsonl(self) -> str:
+        """One JSON object per line: a `meta` header, then every span in
+        record order, then one `counters` line."""
+        buf = io.StringIO()
+        buf.write(json.dumps({"meta": {"t_wall0": self.t_wall0,
+                                       "t_perf0": self.t_perf0,
+                                       "n_spans": len(self)}}) + "\n")
+        for s in self.snapshot():
+            buf.write(json.dumps({"span": s.to_dict()}) + "\n")
+        with self._lock:
+            counters = dict(self.counters)
+        buf.write(json.dumps({"counters": counters}) + "\n")
+        return buf.getvalue()
 
+    @staticmethod
+    def from_jsonl(text: str) -> "TraceBuffer":
+        """Rebuild a buffer from `to_jsonl()` output (round-trip tested)."""
+        buf = TraceBuffer()
+        for line in text.splitlines():
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            if "meta" in row:
+                buf.t_wall0 = row["meta"]["t_wall0"]
+                buf.t_perf0 = row["meta"]["t_perf0"]
+            elif "span" in row:
+                d = row["span"]
+                buf.spans.append(Span(
+                    name=d["name"], t0=d["t0"], t1=d["t1"],
+                    depth=d["depth"], parent=d["parent"],
+                    index=d["index"], thread=d["thread"],
+                    phase=d["phase"], attrs=d["attrs"]))
+            elif "counters" in row:
+                buf.counters.update(row["counters"])
+        return buf
+
+    def chrome_trace(self) -> Dict[str, Any]:
+        """`trace_event`-format dict for chrome://tracing / Perfetto.
+
+        One pid (the search process); one tid lane per span-name *family*
+        so e.g. all `backend.*` dispatch spans share a lane separate from
+        the driver phases.  Spans within a lane nest by time containment
+        ("X" complete events), which matches the recorded nesting because
+        families follow the call structure."""
+        events: List[Dict[str, Any]] = [{
+            "ph": "M", "pid": 0, "tid": 0, "name": "process_name",
+            "args": {"name": "repro-dse"}}]
+        lanes: Dict[str, int] = {}
+        spans = self.snapshot()
+        for s in spans:
+            fam = family_of(s.name)
+            if fam not in lanes:
+                lanes[fam] = len(lanes)
+                events.append({"ph": "M", "pid": 0, "tid": lanes[fam],
+                               "name": "thread_name",
+                               "args": {"name": fam}})
+        for s in spans:
+            if s.t1 is None:
+                continue
+            args = {k: v for k, v in s.attrs.items()}
+            if s.phase:
+                args["phase"] = True
+            events.append({
+                "ph": "X", "pid": 0, "tid": lanes[family_of(s.name)],
+                "name": s.name, "cat": "phase" if s.phase else "detail",
+                "ts": (s.t0 - self.t_perf0) * 1e6,      # microseconds
+                "dur": s.duration * 1e6,
+                "args": args})
+        with self._lock:
+            counters = dict(self.counters)
+        for name, val in sorted(counters.items()):
+            events.append({"ph": "C", "pid": 0, "tid": 0, "name": name,
+                           "ts": (time.perf_counter() - self.t_perf0) * 1e6,
+                           "args": {"value": val}})
+        return {"traceEvents": events,
+                "displayTimeUnit": "ms",
+                "otherData": {"t_wall0": self.t_wall0}}
+
+
+# ---------------------------------------------------------------------------
+# tracers
+# ---------------------------------------------------------------------------
 class _SpanCtx:
     """Live span handle: a context manager that records on exit.
-    `set(**attrs)` attaches attributes discovered mid-span."""
+    `set(**attrs)` attaches attributes discovered mid-span (row counts,
+    group sizes)."""
     __slots__ = ("_tracer", "_span")
 
     def __init__(self, tracer: "Tracer", span: Span):
@@ -138,9 +264,10 @@ _NULL_SPAN = _NullSpan()
 class Tracer:
     """Records nestable spans and counters into a `TraceBuffer`.
 
-    Nesting is tracked per thread (a `threading.local` stack).  Metrics
-    (`obs.metrics.Metrics`) ride along so instrumented code reaches both
-    through one handle."""
+    Nesting is tracked per thread (a `threading.local` stack), so
+    concurrent recorders interleave safely and each thread's spans parent
+    correctly.  Metrics (`obs.metrics.Metrics`) ride along so instrumented
+    code reaches both through one handle."""
 
     enabled = True
 
@@ -150,6 +277,7 @@ class Tracer:
         self.metrics = metrics if metrics is not None else Metrics()
         self._local = threading.local()
 
+    # -- span stack ------------------------------------------------------
     def _stack(self) -> List[Span]:
         st = getattr(self._local, "stack", None)
         if st is None:
@@ -173,6 +301,7 @@ class Tracer:
         elif span in st:                # tolerate out-of-order exits
             st.remove(span)
 
+    # -- counters / convenience -----------------------------------------
     def count(self, name: str, n: float = 1) -> None:
         self.buffer.count(name, n)
 
@@ -181,6 +310,17 @@ class Tracer:
 
     def span_times(self) -> Dict[str, float]:
         return self.buffer.span_times()
+
+    def export_jsonl(self, path: str) -> str:
+        text = self.buffer.to_jsonl()
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    def export_chrome(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.buffer.chrome_trace(), f)
+        return path
 
 
 class NullTracer:
@@ -209,6 +349,9 @@ class NullTracer:
 
 NULL_TRACER = NullTracer()
 
+# ---------------------------------------------------------------------------
+# ambient tracer (contextvar: thread- and nesting-safe)
+# ---------------------------------------------------------------------------
 _ACTIVE: "contextvars.ContextVar[object]" = contextvars.ContextVar(
     "repro_torch_obs_tracer", default=NULL_TRACER)
 
@@ -239,6 +382,38 @@ def activate(tracer) -> _Activation:
     """Scope `tracer` as the ambient tracer:
 
         with activate(tr):
-            explore(...)                # library spans land in tr
+            run_search(...)             # library spans land in tr
     """
     return _Activation(tracer)
+
+
+def deferred_sync(fn):
+    """Mark `fn` as a *deferred-sync producer*: it deliberately returns
+    device tensors whose work is enqueued but not waited for, so a later
+    consumer can overlap host work with device execution before copying
+    the results back.  A plain marker: the decorator returns `fn` as it
+    is, tagged `__deferred_sync__`.  Callers launch such a function inside
+    a trace span, and whoever copies its results to the host does so
+    inside one too (the streaming driver's "device-wait" phase)."""
+    fn.__deferred_sync__ = True
+    return fn
+
+
+def as_tracer(trace) -> object:
+    """Normalize a user-facing `trace=` argument:
+
+    None       -> the ambient tracer (NULL_TRACER unless activated)
+    False      -> NULL_TRACER (force off, even under an active ambient)
+    True       -> a fresh recording Tracer
+    a Tracer   -> itself
+    """
+    if trace is None:
+        return current_tracer()
+    if trace is False:
+        return NULL_TRACER
+    if trace is True:
+        return Tracer()
+    if hasattr(trace, "span") and hasattr(trace, "count"):
+        return trace
+    raise TypeError(f"trace must be None, a bool, or a Tracer-like "
+                    f"object, got {type(trace).__name__}")

@@ -16,6 +16,16 @@ BatchSig group (`_kernel_group`).
 Jobs carry either a `core.mapspace_array.PackedMapspace` (array-native —
 zero packing happens here) or a `Mapping` list (packed exactly once, then
 treated identically).
+
+For the streaming driver (`search.driver`, overlap mode), `fused_launch`
+enqueues every oracle group on the device and returns its scores as
+device tensors, not yet copied back (`@obs.deferred_sync`), so the host
+can build the next round while the device scores this one;
+`fused_collect` copies them back and takes the argmin (the driver's
+"device-wait" phase).  Kernel groups resolve inside `fused_launch`.
+`fused_best` is the synchronous form with identical winners.  Every group
+is scored on the one device it is given (`FUSED_DEVICES`): the JAX
+package's multi-device shard plan is not ported.
 """
 from __future__ import annotations
 
@@ -32,7 +42,10 @@ from ..core.designer import HardwareDesc
 from ..core.mapping import Mapping
 from ..core.workload import Workload
 from ..device import as_device, to_device
-from ..obs import current_tracer
+from ..obs import current_tracer, deferred_sync
+
+#: Devices one fused group is scored on (no shard plan: one).
+FUSED_DEVICES = 1
 
 
 @dataclasses.dataclass
@@ -128,6 +141,29 @@ def _assign_best(idxs: List[int], counts: List[int], jobs, scores,
         off += cnt
 
 
+def _each_chunk(todo: Dict[object, List[int]], sizes: Dict[int, int],
+                max_group: int):
+    """-> (sig, chunk, rows) for every `max_group`-bounded chunk of every
+    BatchSig group in `todo`."""
+    for sig, idxs in todo.items():
+        for chunk in _chunk(idxs, sizes, max_group):
+            yield sig, chunk, sum(sizes[i] for i in chunk)
+
+
+def _observe_chunk(tr, chunk: List[int], rows: int) -> None:
+    tr.metrics.histogram("fused.group_rows").observe(rows)
+    tr.metrics.histogram("fused.group_jobs").observe(len(chunk))
+
+
+def _kernel_groups(kernel_groups, sizes, max_group, jobs, arrays, goal,
+                   out, dev, tr) -> None:
+    """Score every kernel group now, one launch per chunk."""
+    for sig, chunk, rows in _each_chunk(kernel_groups, sizes, max_group):
+        with tr.span("fused.kernel-group", jobs=len(chunk), rows=rows):
+            _kernel_group(chunk, jobs, arrays, goal, out, dev)
+        _observe_chunk(tr, chunk, rows)
+
+
 def fused_best(jobs: Sequence[MapspaceJob], goal: str = "edp",
                max_group: int = 65536, *, device="cuda",
                backend: str = "auto") -> List[JobBest]:
@@ -145,22 +181,74 @@ def fused_best(jobs: Sequence[MapspaceJob], goal: str = "edp",
     dev = as_device(device)
     groups, kernel_groups, arrays, sizes = _group_jobs(jobs, engine)
     out: List[Optional[JobBest]] = [None] * len(jobs)
-
     tr = current_tracer()
-    for todo, label, score in ((kernel_groups, "fused.kernel-group",
-                                _kernel_group),
-                               (groups, "fused.torch-group", _eval_group)):
-        for sig, idxs in todo.items():
-            for chunk in _chunk(idxs, sizes, max_group):
-                rows = sum(sizes[i] for i in chunk)
-                with tr.span(label, jobs=len(chunk), rows=rows):
-                    score(sig, chunk, jobs, arrays, goal, out, dev)
-                tr.metrics.histogram("fused.group_rows").observe(rows)
-                tr.metrics.histogram("fused.group_jobs").observe(len(chunk))
+    _kernel_groups(kernel_groups, sizes, max_group, jobs, arrays, goal, out,
+                   dev, tr)
+    for sig, chunk, rows in _each_chunk(groups, sizes, max_group):
+        with tr.span("fused.torch-group", jobs=len(chunk), rows=rows):
+            _collect_group(_launch_group(sig, chunk, arrays, goal, dev),
+                           jobs, out)
+        _observe_chunk(tr, chunk, rows)
     return [b for b in out if b is not None]
 
 
-def _kernel_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
+@dataclasses.dataclass
+class _PendingGroup:
+    """One oracle chunk whose scores are still on the device."""
+    idxs: List[int]
+    counts: List[int]
+    scores: object                    # torch.Tensor [rows] on the device
+    valid: object                     # torch.Tensor [rows] bool
+
+
+@dataclasses.dataclass
+class PendingFused:
+    """In-flight fused round: kernel-group winners already resolved in
+    `out`; oracle groups awaiting their copy back in `fused_collect`."""
+    jobs: Sequence[MapspaceJob]
+    groups: List[_PendingGroup]
+    out: List[Optional[JobBest]]
+
+
+@deferred_sync
+def fused_launch(jobs: Sequence[MapspaceJob], goal: str = "edp",
+                 max_group: int = 65536, *, device="cuda",
+                 backend: str = "auto") -> PendingFused:
+    """Enqueue every fused scoring call of a round and return without
+    waiting for the oracle groups.
+
+    Grouping, chunking and selection are exactly `fused_best`'s —
+    `fused_collect(fused_launch(jobs))` gives the same winners — but the
+    oracle groups come back as device tensors so the caller can overlap
+    host work with device execution.  Kernel groups resolve here: their
+    op copies its outputs back, which keeps their device time inside the
+    launching span.
+    """
+    engine = resolve_backend(backend)
+    dev = as_device(device)
+    groups, kernel_groups, arrays, sizes = _group_jobs(jobs, engine)
+    out: List[Optional[JobBest]] = [None] * len(jobs)
+    tr = current_tracer()
+    _kernel_groups(kernel_groups, sizes, max_group, jobs, arrays, goal, out,
+                   dev, tr)
+    pending: List[_PendingGroup] = []
+    for sig, chunk, rows in _each_chunk(groups, sizes, max_group):
+        with tr.span("fused.torch-dispatch", jobs=len(chunk), rows=rows):
+            pending.append(_launch_group(sig, chunk, arrays, goal, dev))
+        _observe_chunk(tr, chunk, rows)
+    return PendingFused(jobs=jobs, groups=pending, out=out)
+
+
+def fused_collect(pending: PendingFused) -> List[JobBest]:
+    """Copy a `fused_launch` round's oracle scores back and resolve the
+    per-job winners.  Callers bracket this in the span that owns the
+    device time (the streaming driver's "device-wait" phase)."""
+    for g in pending.groups:
+        _collect_group(g, pending.jobs, pending.out)
+    return [b for b in pending.out if b is not None]
+
+
+def _kernel_group(idxs: List[int], jobs, arrays: List[_JobArrays],
                   goal: str, out: List[Optional[JobBest]], dev) -> None:
     """Score one BatchSig group of kernel-eligible jobs, validity
     included, with one multi-architecture kernel launch."""
@@ -173,9 +261,10 @@ def _kernel_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
     _assign_best(idxs, counts, jobs, np.where(valid, scores, np.inf), out)
 
 
-def _eval_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
-                goal: str, out: List[Optional[JobBest]], dev) -> None:
-    """Score one BatchSig group with one `evaluate_batch_multi` call."""
+def _launch_group(sig, idxs: List[int], arrays: List[_JobArrays],
+                  goal: str, dev) -> _PendingGroup:
+    """Enqueue one BatchSig group's `evaluate_batch_multi` call on `dev`;
+    its scores stay there."""
     counts = [arrays[i].factors.shape[0] for i in idxs]
     cat = lambda name: np.concatenate([getattr(arrays[i], name)
                                        for i in idxs])
@@ -186,15 +275,26 @@ def _eval_group(sig, idxs: List[int], jobs, arrays: List[_JobArrays],
     res = evaluate_batch_multi(sig, params, to_device(cat("factors"), dev),
                                to_device(cat("rank"), dev),
                                to_device(cat("store"), dev))
-    scores = res[GOAL_KEY[goal]].cpu().numpy()
-    valid = res["valid"].cpu().numpy()
-    _assign_best(idxs, counts, jobs, np.where(valid, scores, np.inf), out)
+    return _PendingGroup(idxs=idxs, counts=counts,
+                         scores=res[GOAL_KEY[goal]], valid=res["valid"])
 
 
-def per_arch_best(jobs: Sequence[MapspaceJob], goal: str = "edp", *,
-                  device="cuda", backend: str = "auto") -> List[JobBest]:
-    """One `best_index` (or, below 64 rows, a scalar loop over the
-    evaluator) per job — the explorer's per-workload selection."""
+def _collect_group(g: _PendingGroup, jobs,
+                   out: List[Optional[JobBest]]) -> None:
+    """Copy one group's scores back and assign its jobs' winners."""
+    scores = g.scores.cpu().numpy()
+    valid = g.valid.cpu().numpy()
+    _assign_best(g.idxs, g.counts, jobs, np.where(valid, scores, np.inf),
+                 out)
+
+
+def per_arch_best(jobs: Sequence[MapspaceJob], goal: str = "edp",
+                  use_batch: bool = True, *, device="cuda",
+                  backend: str = "auto") -> List[JobBest]:
+    """One `best_index` (or, below 64 rows or without `use_batch`, a
+    scalar loop over the evaluator) per job — the explorer's per-workload
+    selection.  An engine that fails raises: nothing falls back to the
+    scalar loop."""
     from ..core.backend import best_index
     from ..core.evaluator import evaluate_mapping
     from ..core.explorer import GOALS
@@ -209,7 +309,7 @@ def per_arch_best(jobs: Sequence[MapspaceJob], goal: str = "edp", *,
             batch = job.packed if job.packed is not None else job.mappings
             mat = (job.packed.materialize if job.packed is not None
                    else job.mappings.__getitem__)
-            if job.n_rows() >= 64:
+            if use_batch and job.n_rows() >= 64:
                 best_i = best_index(batch, goal, backend, device=dev)
                 best_v = score(evaluate_mapping(mat(best_i)))
             else:

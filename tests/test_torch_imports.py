@@ -47,6 +47,11 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.ops",
     "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.core.scheduler", "repro_torch.search.space",
+    "repro_torch.search.pareto", "repro_torch.search.constraints",
+    "repro_torch.search.strategies", "repro_torch.search.mix",
+    "repro_torch.search.cache", "repro_torch.search.driver",
+    "repro_torch.obs.progress", "repro_torch.obs.manifest",
 ]
 
 
@@ -95,7 +100,8 @@ def test_every_port_module_is_listed():
 
 def _entry_points():
     import repro_torch.core as tc
-    from repro_torch.search import MapspaceJob, fused_best
+    from repro_torch.search import (MapspaceJob, fused_best, fused_launch,
+                                    run_search)
     hw = tc.make_spatial_arch(num_pes=64, rf_words=128,
                               gbuf_words=16 * 1024, bits=16)
     wl = tc.analyze(tc.alexnet_cifar(batch_size=4)).intra[2]
@@ -118,12 +124,16 @@ def _entry_points():
         "best_index": lambda **kw: tc.best_index(pm, **kw),
         "fused_best": lambda **kw: fused_best(
             [MapspaceJob(tag=0, hw=hw, workload=wl, packed=pm)], **kw),
+        "fused_launch": lambda **kw: fused_launch(
+            [MapspaceJob(tag=0, hw=hw, workload=wl, packed=pm)], **kw),
+        "run_search": lambda **kw: run_search(
+            task, [hw], cfg=tc.MapperConfig(max_mappings=80), **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["explore", "score_mapspace", "best_index",
-                                  "fused_best", "init_model", "ServeEngine",
-                                  "main_lm"])
+                                  "fused_best", "fused_launch", "run_search",
+                                  "init_model", "ServeEngine", "main_lm"])
 def test_no_silent_cpu_fallback(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
