@@ -111,6 +111,24 @@ catches its own failure.
               window keeps
               it off, as in the reference's `sdpa`); decode over one chunk
               matches the prefill in float32, as in phase 10
+ 12. service  the DSE service (`DSEService(workers=2)`, a disk cache in a
+              temporary directory) answering TRIM design queries over one
+              smollm-135m training block at full width (30 layers, d_model
+              576, 9/3 heads of 64, MLP 1536, vocab 49,152; `lower_block`
+              at [4, 2048]: 24 matmul workloads + 3 of the head) on the 8
+              architectures, no-bypass mapspaces: query A (exhaustive,
+              fused, "cuda") from 4 clients at once and query B (anneal,
+              budget 4, per-arch, seed 1) together on the two workers; the
+              4 clients coalesce onto one job (admitted 2, coalesced 3)
+              with equal event streams; A equals a direct `run_search` on
+              "torch"; A resubmitted after it retired is a new job of
+              cache hits only with the same report; every job's manifest
+              names the card; a deadline of 0.3 of A's wall cancels a job
+              with a consistent partial frontier; a forced two-shard plan
+              over (cuda:0, cuda:0) on one fused group of A is bit-equal
+              to the unsharded call on both engines.  Walls per job and by
+              driver phase, the device's idle share over job A, and the
+              launches of both mapspace kernels
 
 Phase 2 builds the three kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -238,6 +256,17 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
 LOGIT_TOL_F32 = 2e-3
 SSM_ENGINE_REQUESTS, SSM_PROMPT_LENS, SSM_NEW_TOKENS = 8, (16, 64), 16
 HYBRID_PREFILL_B = 1
+
+# The DSE service: TRIM's training-accelerator search over one smollm-135m
+# training block at its published width, lowered as
+# examples/dse_modern_lm.py does (24 FW/BW/WG matmuls a block + 3 of the
+# head).  Query A: exhaustive, fused, from SERVICE_CLIENTS clients at once;
+# query B: anneal at budget SEARCH_BUDGET, per-arch, seed 1.  A copy of A
+# with goal "latency" (other cache keys) gets a deadline of
+# CANCEL_FRACTION of A's wall.
+SERVICE_SHAPE = ("train_4x2048", 2048, 4, "train")
+SERVICE_CLIENTS = 4
+CANCEL_FRACTION = 0.3
 
 
 def say(phase: str, msg: str) -> None:
@@ -851,6 +880,215 @@ def search_phase(task, archs, dev):
     return cold_launches["single"], launches["multi"]
 
 
+def _partial_ok(report, n_archs: int) -> None:
+    """A cancelled search's report must be a consistent partial one: some
+    but not all architectures evaluated, each once in the history, the
+    best among them at the history's best feasible value, and every
+    frontier point one of them."""
+    rows = report.history
+    coords = [r["coords"] for r in rows]
+    if not report.cancelled or not 1 <= report.n_evaluated < n_archs:
+        raise RuntimeError(f"the deadline did not cut the search: "
+                           f"cancelled={report.cancelled}, "
+                           f"{report.n_evaluated} of {n_archs} archs")
+    if len(set(coords)) != len(coords) or len(rows) != report.n_evaluated:
+        raise RuntimeError("the partial history does not match the "
+                           "evaluated count")
+    feasible = [r["value"] for r in rows if r["feasible"]]
+    if report.best_coords not in coords \
+            or report.goal_value() != min(feasible):
+        raise RuntimeError("the partial best is not the history's best")
+    archs = {r["arch"] for r in rows}
+    objectives = {tuple(r["objectives"]) for r in rows if r["objectives"]}
+    for p in report.pareto.points():
+        if p.key not in archs or tuple(p.values) not in objectives:
+            raise RuntimeError(f"frontier point {p.key} was never "
+                               f"evaluated")
+
+
+def service_phase(archs, dev):
+    """The DSE service on the card -> (single-architecture kernel
+    launches, multi-architecture kernel launches) while it served."""
+    import tempfile
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import MapperConfig, build_packed_mapspace
+    from repro_torch.core.explorer import _workload_key
+    from repro_torch.core.task_analyst import TaskWorkloads
+    from repro_torch.core.lower_lm import lower_block
+    from repro_torch.obs import Tracer, activate
+    from repro_torch.search import MapspaceJob, fused_best, run_search
+    from repro_torch.search import batch_frontier as bf
+    from repro_torch.serve import DSEService, SearchQuery
+    t_phase = time.perf_counter()
+    low = lower_block(get_config(SERVE_ARCH), ShapeSpec(*SERVICE_SHAPE))
+    task = TaskWorkloads(intra=low.workloads + low.tail, preproc=[],
+                         activations=[])
+    distinct = list({_workload_key(w): w for w in task.intra}.values())
+    cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0,
+                       enable_bypass=False)
+    query_a = dict(task=task, space=archs, goal="edp", cfg=cfg,
+                   strategy="exhaustive", batching="fused",
+                   round_size=SEARCH_ROUND, backend="cuda")
+    say("service", f"{SERVE_ARCH} training block at [{SERVICE_SHAPE[2]}, "
+        f"{SERVICE_SHAPE[1]}]: {len(task.intra)} workloads "
+        f"({len(low.workloads)} a block x {low.repeat} layers + "
+        f"{len(low.tail)} of the head, {len(distinct)} distinct), "
+        f"{low.total_macs():.4g} MACs a step; {len(archs)} archs")
+    reset_launch_counts()
+    tr = Tracer()
+    with tempfile.TemporaryDirectory() as tmp, \
+            DSEService(workers=2, cache=tmp, device=dev, tracer=tr) as svc:
+        barrier = threading.Barrier(SERVICE_CLIENTS)
+        tickets, errors = [None] * SERVICE_CLIENTS, []
+
+        def client(i):
+            try:
+                barrier.wait(timeout=60)
+                tickets[i] = svc.submit(SearchQuery(**query_a))
+            except BaseException as exc:     # raised below
+                errors.append(exc)
+
+        def serve_a_and_b():
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVICE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            if errors or any(t is None for t in tickets):
+                raise RuntimeError(f"a client's submit failed: {errors}")
+            tickets.append(svc.submit(SearchQuery(
+                task=task, space=archs, goal="edp", cfg=cfg,
+                strategy="anneal", budget=SEARCH_BUDGET, seed=1,
+                batching="per-arch", round_size=SEARCH_ROUND,
+                backend="cuda")))
+            tickets[0].result(timeout=600)
+
+        t0 = time.perf_counter()
+        wall_a, busy, n_ops, _, _ = device_busy(serve_a_and_b)
+        a_tickets, tb = tickets[:SERVICE_CLIENTS], tickets[-1]
+        rep_a, rep_b = a_tickets[0].result(), tb.result(timeout=600)
+        pair_wall = time.perf_counter() - t0
+        snap = svc.snapshot()
+        if (snap["admitted"], snap["coalesced"]) != (2, SERVICE_CLIENTS - 1):
+            raise RuntimeError(f"the {SERVICE_CLIENTS} clients did not "
+                               f"coalesce onto one job: {snap}")
+        if len({t.job for t in a_tickets}) != 1 or tb.job is a_tickets[0].job:
+            raise RuntimeError("query A's tickets are not on one job")
+        streams = [[e.to_dict() for e in t.drain(timeout=60)]
+                   for t in a_tickets]
+        if any(st != streams[0] for st in streams[1:]):
+            raise RuntimeError("the coalesced clients' event streams "
+                               "differ")
+        kinds = [e["kind"] for e in streams[0]]
+        say("service", f"A ({SERVICE_CLIENTS} clients) and B together: "
+            f"{pair_wall:.3f} s; A {rep_a.wall_time_s:.3f} s wall, "
+            f"{rep_a.n_evaluated} archs, {rep_a.n_enumerations} mapspaces "
+            f"scored; B {rep_b.wall_time_s:.3f} s wall, "
+            f"{rep_b.n_evaluated} archs; stats {snap}; {len(kinds)} events "
+            f"a client ({kinds.count('job-coalesced')} job-coalesced), "
+            f"all {SERVICE_CLIENTS} streams equal")
+        say("service", f"device over job A's {wall_a:.3f} s (B shares the "
+            f"card): busy {busy:.3f} s ({100 * busy / wall_a:.2f}%, idle "
+            f"{100 - 100 * busy / wall_a:.2f}%) in {n_ops} device ops")
+
+        t0 = time.perf_counter()
+        again = svc.submit(SearchQuery(**query_a))
+        warm = again.result(timeout=600)
+        warm_wall = time.perf_counter() - t0
+        if again.coalesced or again.job is a_tickets[0].job \
+                or svc.snapshot()["admitted"] != 3:
+            raise RuntimeError("the resubmit of A was not a new job")
+        if warm.n_cache_misses or warm.n_enumerations \
+                or not warm.n_cache_hits:
+            raise RuntimeError(f"the resubmit of A is not all hits: "
+                               f"{warm.n_cache_hits} hits, "
+                               f"{warm.n_cache_misses} misses")
+        if _report_key(warm) != _report_key(rep_a) \
+                or warm.hypervolume_curve() != rep_a.hypervolume_curve():
+            raise RuntimeError("the warm resubmit of A differs from A")
+        say("service", f"A resubmitted after it retired: a new job, "
+            f"{warm_wall:.3f} s, {warm.n_cache_hits} cache hits and no "
+            f"miss, the same report")
+
+        deadline = CANCEL_FRACTION * rep_a.wall_time_s
+        tc_ = svc.submit(SearchQuery(**{**query_a, "goal": "latency"}),
+                         timeout_s=deadline)
+        cut = tc_.result(timeout=600)
+        if tc_.status != "cancelled" or tc_.job.cancel_reason != "deadline":
+            raise RuntimeError(f"the deadline did not cancel the job: "
+                               f"{tc_.status}, {tc_.job.cancel_reason}")
+        _partial_ok(cut, len(archs))
+        say("service", f"deadline {deadline:.3f} s ({CANCEL_FRACTION} of "
+            f"A's wall): cancelled after {cut.wall_time_s:.3f} s with "
+            f"{cut.n_evaluated} of {len(archs)} archs, frontier "
+            f"{len(cut.pareto)}: consistent")
+        card = torch.cuda.get_device_name(0)
+        for name, r in (("A", rep_a), ("B", rep_b), ("A again", warm),
+                        ("cancelled", cut)):
+            m = r.manifest
+            if m is None or m.device_name != card \
+                    or m.compute_capability != "9.0":
+                raise RuntimeError(f"job {name}'s manifest names "
+                                   f"{m and m.device_name}")
+        final = svc.snapshot()
+    launches = launch_counts()
+    if launches["single"] == 0 or launches["multi"] == 0:
+        raise RuntimeError(f"the service did not launch both mapspace "
+                           f"kernels: {launches}")
+    say("service", f"stats {final}; launches {{single: "
+        f"{launches['single']}, multi: {launches['multi']}}}; manifests "
+        f"name {card}; driver phases over all jobs (s): "
+        + _phases(tr.phase_times()))
+
+    t0 = time.perf_counter()
+    direct = run_search(
+        task, archs, **{k: v for k, v in query_a.items()
+                        if k not in ("task", "space", "backend")},
+        backend="torch", device=dev)
+    direct_wall = time.perf_counter() - t0
+    if _report_key(direct) != _report_key(rep_a) \
+            or direct.hypervolume_curve() != rep_a.hypervolume_curve():
+        raise RuntimeError("query A through the service differs from a "
+                           "direct run_search on the oracle engine")
+    say("service", f"A equals a direct run_search on \"torch\" "
+        f"({direct_wall:.3f} s): best {rep_a.best.hardware.name} edp "
+        f"{rep_a.goal_value():.6g}, frontier {len(rep_a.pareto)} archs")
+
+    jobs = [MapspaceJob(tag=hw.name, hw=hw, workload=distinct[0],
+                        packed=build_packed_mapspace(distinct[0], hw, cfg))
+            for hw in archs]
+    rows = sum(j.n_rows() for j in jobs)
+    key = lambda bests: [(b.tag, b.index, b.value, b.n_scored)
+                         for b in bests]
+    real_devices = bf._local_devices
+    for engine in ("cuda", "torch"):
+        base = fused_best(jobs, "edp", device=dev, backend=engine)
+        reset_launch_counts()
+        bf._local_devices = lambda device: (dev, dev)
+        try:
+            tr2 = Tracer()
+            with activate(tr2):
+                split = fused_best(jobs, "edp", device=dev, backend=engine)
+        finally:
+            bf._local_devices = real_devices
+        n = launch_counts()["multi"]
+        sharded = (n == 2 if engine == "cuda" else
+                   "fused.shard-dispatch" in tr2.span_times())
+        if not sharded or key(split) != key(base):
+            raise RuntimeError(f"the forced two-shard plan on {engine} "
+                               f"(sharded: {sharded}) differs from the "
+                               f"unsharded call")
+    reset_launch_counts()
+    say("service", f"forced two-shard plan over ({dev}, {dev}) on one "
+        f"fused group of A ({len(jobs)} jobs of {distinct[0].name}, {rows} "
+        f"rows): bit-equal to the unsharded call on both engines; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches["single"], launches["multi"]
+
+
 def flash_bound_ms(b, s, h, hkv, d, dtype, causal=True):
     """The least time the card could take for causal attention on these
     shapes: 2 products x 2 ops x D per (row, visible key) pair, S(S+1)/2
@@ -1435,6 +1673,7 @@ def main() -> int:
     single = {"explore": explore_phase(task, archs, dev)}
     multi = {"fused_best": fused_phase(distinct, archs, dev)}
     single["search"], multi["search"] = search_phase(task, archs, dev)
+    single["service"], multi["service"] = service_phase(archs, dev)
     # launches on the main path: the search driver's runs (explore is its
     # per-arch exhaustive search; the fused exhaustive search)
     for name, paths, main_path in (("mapspace_eval_single", single,

@@ -25,7 +25,7 @@ the same check on the host, the reference the tests hold the kernel to.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -80,6 +80,13 @@ def validity_mask_arrays(st: HwStatic, factors: np.ndarray,
         used = np.where(store[:, j, :], words, 0.0).sum(axis=1)
         valid &= used <= st.sizes[j]
     return valid
+
+
+def validity_mask(mappings: Sequence[Mapping]) -> np.ndarray:
+    """Object-path wrapper over `validity_mask_arrays` (packs once)."""
+    st = make_static(mappings[0].hardware, mappings[0].workload)
+    factors, _, store = pack(mappings)
+    return validity_mask_arrays(st, factors, store)
 
 
 def _as_arrays(mappings):

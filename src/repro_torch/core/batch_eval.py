@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -511,3 +511,72 @@ def batch_scores_arrays(st: HwStatic, factors, rank, store,
                              to_device(rank, dev), to_device(store, dev))
         return (out[GOAL_KEY[goal]].cpu().numpy(),
                 out["valid"].cpu().numpy())
+
+
+def batch_scores(mappings, goal: str = "edp", device="cuda"):
+    """Score a mapspace (a `Sequence[Mapping]` — packed here exactly once
+    — or a pre-packed `core.mapspace_array.PackedMapspace`) with the
+    oracle on `device` -> (scores [n], valid [n]) numpy."""
+    from .mapspace_array import PackedMapspace
+    if isinstance(mappings, PackedMapspace):
+        return batch_scores_arrays(mappings.static, mappings.factors,
+                                   mappings.rank, mappings.store, goal,
+                                   device)
+    st = make_static(mappings[0].hardware, mappings[0].workload)
+    factors, rank, store = pack(mappings)
+    return batch_scores_arrays(st, factors, rank, store, goal, device)
+
+
+def batch_best_index(mappings, goal: str = "edp", backend: str = "torch",
+                     device="cuda") -> int:
+    """Index of the goal-best valid mapping (ties break low); `mappings`
+    is a Mapping sequence or a `PackedMapspace`.  `backend="torch"` is
+    this module's oracle; any other engine goes through
+    `core.backend.best_index`."""
+    if backend != "torch":
+        from .backend import best_index     # lazy: backend wraps this module
+        return best_index(mappings, goal, backend, device=device)
+    scores, valid = batch_scores(mappings, goal, device)
+    return int(np.argmin(np.where(valid, scores, np.inf)))
+
+
+# ---------------------------------------------------------------------------
+# Multi-device sharding.  Every output row of a fused group depends only on
+# its own factors/rank/store/params row, so a large group splits along the
+# mapping axis into one contiguous shard per device and the host merge
+# concatenates the per-shard results: bit-identical to the one-call path.
+# ---------------------------------------------------------------------------
+SHARD_MIN_ROWS = 4096   # below this, sharding overhead beats the win
+
+
+def shard_bounds(n: int, k: int,
+                 min_rows: int = SHARD_MIN_ROWS) -> List[Tuple[int, int]]:
+    """Split `n` rows into at most `k` contiguous (lo, hi) shards of
+    near-equal size, never creating a shard smaller than `min_rows`
+    (small groups stay whole — per-device dispatch overhead would
+    dominate).  Always returns at least one shard covering [0, n)."""
+    if n <= 0:
+        return [(0, max(n, 0))]
+    k = max(1, min(k, n // max(1, min_rows)))
+    if k <= 1:
+        return [(0, n)]
+    base, extra = divmod(n, k)
+    bounds: List[Tuple[int, int]] = []
+    lo = 0
+    for i in range(k):
+        hi = lo + base + (1 if i < extra else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def score_devices(device="cuda") -> Tuple[torch.device, ...]:
+    """Devices the fused scorer may shard a group over: every CUDA device
+    of the host (`cuda:0` ... `cuda:{n-1}`) for a CUDA `device`, else the
+    one CPU device."""
+    from ..device import as_device
+    dev = as_device(device)
+    if dev.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (dev,)

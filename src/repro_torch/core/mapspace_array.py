@@ -218,3 +218,17 @@ def build_packed_mapspace(workload: Workload, hw: HardwareDesc,
         fi=fi[idx], oi=oi[idx], bi=bi[idx], tables=tables,
         total_candidates=tables.total, n_valid=n_valid)
 
+
+
+def packed_candidates(workload: Workload, hw: HardwareDesc,
+                      cfg: Optional[MapperConfig] = None):
+    """Debug/test hook: the full candidate set before filtering.
+    -> (tables, factors, rank, store, valid_mask, keep_mask)."""
+    cfg = cfg or MapperConfig()
+    tables, fi, oi, bi = candidate_index_rows(workload, hw, cfg)
+    st = make_static(hw, workload)
+    factors, rank, store = assemble_arrays(tables, st, workload.has_weight,
+                                           fi, oi, bi)
+    valid = packed_validity(hw, st, factors, store, cfg.act_reserve)
+    keep = valid & packed_prune_mask(hw, st, cfg, factors, store)
+    return tables, factors, rank, store, valid, keep

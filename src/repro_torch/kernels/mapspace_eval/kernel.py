@@ -23,6 +23,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -37,13 +38,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SUPPORTED_N_MEM = (2, 3)
 ALIGN = 16            # the kernel stages its inputs with 16-byte copies
 
-#: kernel launches per variant since import (or the last `reset_launches`)
+#: kernel launches per variant since import (or the last `reset_launches`);
+#: exact under threads (a DSE service scores several jobs at once)
 LAUNCHES: Dict[str, int] = {"single": 0, "multi": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(variant: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[variant] += 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -136,7 +145,7 @@ def mapspace_eval_fwd(factors, rank, store, job, *, layout: ref.Layout):
         return ref.score_ref(factors, rank, store, job, layout=layout)
     out = _launch(factors, rank, store, job, None, layout, b, dev)
     if b:
-        LAUNCHES["single"] += 1
+        _count_launch("single")
     return out
 
 
@@ -153,5 +162,5 @@ def mapspace_eval_multi_fwd(factors, rank, store, jobs, offsets, *,
                                    layout=layout)
     out = _launch(factors, rank, store, jobs, offsets, layout, b, dev)
     if b:
-        LAUNCHES["multi"] += 1
+        _count_launch("multi")
     return out

@@ -1,17 +1,22 @@
-"""Serving entry point: the continuous-batching LM engine over synthetic
-requests, on the card unless `--device cpu` is given.
+"""Serving entry points, on the card unless `--device cpu` is given:
 
+    # continuous-batching LM engine over synthetic requests
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch smollm-135m \\
         --full --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve lm --arch mamba2-2.7b \\
         --device cpu
 
+    # DSE-as-a-service demo: N clients submit the same design query
+    # concurrently; identical in-flight requests coalesce onto one
+    # run_search job and every client streams the same event history
+    PYTHONPATH=src python -m repro_torch.launch.serve dse --clients 4 \\
+        --strategy exhaustive --goal edp --device cpu
+
 Every ported family serves: `dense` (smollm-135m, ...), `ssm`
 (mamba2-2.7b) and `hybrid` (zamba2-2.7b).  `--full` serves the
 registered configuration at full width with random weights from `--seed`;
-without it, the reduced variant.  The reference's
-`dse` subcommand (the design-space service) is not ported yet (ROADMAP
-queue 1, item 4), nor is `--ckpt-dir` (training's checkpoints, item 8).
+without it, the reduced variant.  The reference's `--ckpt-dir`
+(training's checkpoints, ROADMAP queue 1, item 8) is not ported yet.
 """
 from __future__ import annotations
 
@@ -63,11 +68,79 @@ def main_lm(argv: Optional[List[str]] = None):
           f"({total_toks / max(dt, 1e-9):.1f} tok/s on {where})")
 
 
+def main_dse(argv: Optional[List[str]] = None):
+    from ..core import Conv2D, FC, Pool2D, TaskDescription
+    from ..obs import Tracer
+    from ..search.space import ArchSpace
+    from ..serve.dse_service import DSEService, SearchQuery
+
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve dse")
+    ap.add_argument("--clients", type=int, default=4,
+                    help="concurrent identical submits (coalesce demo)")
+    ap.add_argument("--distinct", type=int, default=1,
+                    help="additional distinct queries (separate jobs)")
+    ap.add_argument("--workers", type=int, default=2)
+    ap.add_argument("--strategy", default="exhaustive")
+    ap.add_argument("--goal", default="edp")
+    ap.add_argument("--budget", type=int, default=None)
+    ap.add_argument("--constraints", default="",
+                    help='e.g. "area_mm2<=5"')
+    ap.add_argument("--timeout-s", type=float, default=None)
+    ap.add_argument("--cache-dir", default="",
+                    help="persistent warm cache tier (shared)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print every client-0 progress event")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace of the service here")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    task = TaskDescription(
+        name="cnn-demo", input_shape=(16, 16, 3), batch_size=4,
+        processing_type="Inference",
+        layers=(Conv2D(8, (3, 3), (1, 1), (1, 1), name="c1"),
+                Pool2D((2, 2), (2, 2), name="p1"),
+                FC(10, name="fc")))
+    space = ArchSpace.spatial(num_pes=(16, 32, 64), rf_words=(64,),
+                              gbuf_words=(2048, 8192), bits=16)
+
+    def query(seed: int = 0) -> SearchQuery:
+        return SearchQuery(
+            task=task, space=space, goal=args.goal,
+            strategy=args.strategy, budget=args.budget, seed=seed,
+            constraints=args.constraints or None)
+
+    tracer = Tracer() if args.trace else None
+    with DSEService(workers=args.workers,
+                    cache=args.cache_dir or None,
+                    default_timeout_s=args.timeout_s,
+                    tracer=tracer, device=args.device) as svc:
+        t0 = time.time()
+        tickets = [svc.submit(query()) for _ in range(args.clients)]
+        extra = [svc.submit(query(seed=s + 1))
+                 for s in range(args.distinct)]
+        if args.stream:
+            for ev in tickets[0].events(timeout=300.0):
+                print(f"  [{ev.kind}] " + " ".join(
+                    f"{k}={v}" for k, v in ev.payload.items()))
+        for i, tk in enumerate(tickets + extra):
+            rep = tk.result(timeout=300.0)
+            print(f"[dse] client {i}: "
+                  f"{'coalesced' if tk.coalesced else 'admitted'} "
+                  f"digest={tk.digest[:12]} best={rep.best.hardware.name} "
+                  f"{args.goal}={rep.goal_value():.4e} "
+                  f"evaluated={rep.n_evaluated}")
+        snap = svc.snapshot()
+        print(f"[dse] {time.time() - t0:.1f}s on {svc.device}  stats: "
+              + " ".join(f"{k}={v}" for k, v in snap.items()))
+    if args.trace and tracer is not None:
+        print(f"[dse] trace -> {tracer.export_chrome(args.trace)}")
+
+
 def main(argv: Optional[List[str]] = None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "dse":
-        raise NotImplementedError("the dse service is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
+        return main_dse(argv[1:])
     if argv and argv[0] == "lm":
         return main_lm(argv[1:])
     return main_lm(argv)    # legacy flag-only invocation

@@ -39,6 +39,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+from ..core.batch_eval import score_devices
 from ..core.evaluator import evaluate_network
 from ..core.explorer import (ArchResult, WorkloadResult,
                              _workload_key as _wl_key)
@@ -51,8 +52,8 @@ from ..core.workload import TENSORS
 from ..obs import (MANIFEST_DIR, ConsoleSink, ProgressStream, activate,
                    as_stream, as_tracer, build_manifest)
 from ..device import as_device
-from .batch_frontier import (FUSED_DEVICES, MapspaceJob, fused_best,
-                             fused_collect, fused_launch, per_arch_best)
+from .batch_frontier import (MapspaceJob, fused_best, fused_collect,
+                             fused_launch, per_arch_best)
 from .cache import (ResultCache, cache_key, decode_result, encode_result,
                     mix_digest)
 from .constraints import ConstraintSet
@@ -551,14 +552,15 @@ def auto_round_size(mean_rows_per_arch: float,
     None when there is no signal yet (all cache hits).
 
     The row target and round cap were tuned against one device; with
-    `n_devices` devices a fused group would shard row-wise across all of
-    them, so both scale linearly.  The default is the number of devices
-    the port's fused path scores on (`batch_frontier.FUSED_DEVICES`,
-    one: the shard plan is not ported)."""
+    `n_devices` devices a fused group shards row-wise across all of them
+    (`batch_frontier._shard_plan`), so both scale linearly.  The default
+    is the shard plan's device count for a CUDA run (the host's CUDA
+    devices, at least one); `run_search` passes its scoring device's."""
     if mean_rows_per_arch <= 0:
         return None
     if n_devices is None:
-        n_devices = FUSED_DEVICES
+        import torch
+        n_devices = torch.cuda.device_count()
     n_devices = max(1, int(n_devices))
     return max(AUTO_ROUND_MIN,
                min(AUTO_ROUND_MAX * n_devices,
@@ -686,6 +688,7 @@ def run_search(task: Union[TaskDescription, TaskWorkloads],
                          f"got {round_size!r}")
     backend = resolve_backend(backend)
     dev = as_device(device)
+    n_devices = len(score_devices(dev))     # the fused shard plan's
     cset = ConstraintSet.from_any(constraints)
     space = as_space(arch_space)
     workloads = task if isinstance(task, TaskWorkloads) else analyze(task)
@@ -812,7 +815,7 @@ def run_search(task: Union[TaskDescription, TaskWorkloads],
         nonlocal cur_round
         if auto_round and evaluate.archs_scored:
             sized = auto_round_size(evaluate.rows_scored
-                                    / evaluate.archs_scored)
+                                    / evaluate.archs_scored, n_devices)
             if sized is not None:
                 cur_round = sized
 

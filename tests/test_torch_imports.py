@@ -52,6 +52,8 @@ SLICE_MODULES = [
     "repro_torch.search.strategies", "repro_torch.search.mix",
     "repro_torch.search.cache", "repro_torch.search.driver",
     "repro_torch.obs.progress", "repro_torch.obs.manifest",
+    "repro_torch.core.lower_lm", "repro_torch.core.simulator",
+    "repro_torch.serve.dse_service",
 ]
 
 
@@ -108,16 +110,19 @@ def _entry_points():
     pm = tc.build_packed_mapspace(wl, hw, tc.MapperConfig(max_mappings=80))
     task = tc.alexnet_cifar(batch_size=4)
     from repro_torch.configs import reduced_config
-    from repro_torch.launch.serve import main_lm
+    from repro_torch.launch.serve import main_dse, main_lm
     from repro_torch.models import init_model
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import DSEService, ServeEngine
     lm = reduced_config("smollm-135m")
     serve_args = ["--requests", "2", "--max-new-tokens", "2"]
+    dse_args = ["--clients", "2", "--budget", "1", "--distinct", "0"]
+    cli = lambda kw: [a for k, v in kw.items() for a in (f"--{k}", v)]
     return {
         "init_model": lambda **kw: init_model(lm, **kw),
         "ServeEngine": lambda **kw: ServeEngine(lm, None, **kw),
-        "main_lm": lambda **kw: main_lm(
-            serve_args + [a for k, v in kw.items() for a in (f"--{k}", v)]),
+        "main_lm": lambda **kw: main_lm(serve_args + cli(kw)),
+        "DSEService": lambda **kw: DSEService(workers=1, **kw).close(),
+        "main_dse": lambda **kw: main_dse(dse_args + cli(kw)),
         "explore": lambda **kw: tc.explore(
             task, [hw], cfg=tc.MapperConfig(max_mappings=80), **kw),
         "score_mapspace": lambda **kw: tc.score_mapspace(pm, **kw),
@@ -133,7 +138,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["explore", "score_mapspace", "best_index",
                                   "fused_best", "fused_launch", "run_search",
-                                  "init_model", "ServeEngine", "main_lm"])
+                                  "init_model", "ServeEngine", "main_lm",
+                                  "DSEService", "main_dse"])
 def test_no_silent_cpu_fallback(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():

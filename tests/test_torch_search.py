@@ -254,8 +254,16 @@ def test_auto_round_size_matches_jax_at_one_device(mean):
 
 
 def test_port_fused_path_scores_on_one_device():
+    """On the CPU the shard plan has one device, so every fused group is
+    one unpinned entry: scored on the device the caller gave."""
+    import torch
     from repro_torch.search import batch_frontier
-    assert batch_frontier.FUSED_DEVICES == 1
+    devices = batch_frontier._local_devices("cpu")
+    assert devices == (torch.device("cpu"),)
+    assert batch_frontier._shard_plan(10 ** 6, devices) == \
+        [((0, 10 ** 6), None)]
+    assert batch_frontier._kernel_shard_plan([0, 1], [10 ** 5] * 2,
+                                             devices) == [([0, 1], None)]
 
 
 def _jobs(enable_bypass):

@@ -90,7 +90,8 @@ def test_fused_launch_collect_equals_fused_best(card, engine,
     want = ts.fused_best(jobs, "edp", device=card, backend=engine)
     pending = ts.fused_launch(jobs, "edp", device=card, backend=engine)
     for g in pending.groups:                 # oracle scores stay on the card
-        assert g.scores.device.type == "cuda"
+        for scores, valid in g.pend:         # one (scores, valid) a shard
+            assert scores.device.type == valid.device.type == "cuda"
     got = ts.fused_collect(pending)
     assert [(b.tag, b.index, b.value) for b in got] == \
         [(b.tag, b.index, b.value) for b in want]
