@@ -62,8 +62,9 @@ catches its own failure.
               of 64, bf16), bf16 at D=128 causal and full and a ragged
               S=1000 at D=64 on the tensor-core kernel; a ragged float32
               shape (S=1000, D=128) and one small case each at D=80 and
-              D=96 on the SIMT kernel.  At the prefill's shape: times as
-              in phase 3, beside the bound, the SIMT kernel on the same
+              D=96 on the SIMT kernel; the prefill shapes of phase 13
+              (12/2 heads of 128, 16/8 and 12/12 heads of 64, bf16).  At
+              the prefill's shape: times as in phase 3, beside the bound, the SIMT kernel on the same
               values in a padded layout that only it takes (the kernel
               before the tensor-core one), and one PyTorch call computing
               the same function (`scaled_dot_product_attention`, timed
@@ -130,12 +131,37 @@ catches its own failure.
               driver phase, the device's idle share over job A, and the
               launches of both mapspace kernels
 
+ 13. families every other configuration of `configs/registry.py` at full
+              width and depth (bf16, random weights from a CUDA generator
+              seeded with 0), one after another: granite-moe-1b-a400m
+              (`moe`), qwen2-vl-2b (`vlm`, M-RoPE), whisper-small
+              (`encdec`), minicpm3-4b (MLA) and deepseek-v2-lite-16b (`moe`
+              + MLA): parameters, init time and peak memory; the prefill
+              [4, 2048] (whisper: frames and tokens both [4, 2048]) with
+              the flash hook installed must launch the tensor-core kernel
+              24, 28, 12, 0 and 0 times and nothing else (`FAMILY_FLASH`),
+              timed as in phase 8; for the three that launch it, the
+              logits within LOGIT_TOL of plain attention's (if the bf16
+              logits miss and the top-k expert sets of the two runs show
+              the routing flip that explains it, as for granite-moe: with
+              the flash run's experts pinned to the plain run's, within
+              LOGIT_TOL, and on a float32 copy, route "simt", within
+              LOGIT_TOL_F32); qwen2-vl also from
+              `embeds` [4, 2048, d] and `positions3` of a patch grid (text,
+              a 32 x 48 image, text), where M-RoPE's three sections
+              differ: 28 launches again, flash within LOGIT_TOL of plain;
+              `ServeEngine(batch=4, max_len=256)` answers the serve
+              phase's load (8 requests, prompts of 16-128 tokens, 32 new
+              each), with tokens/s over the run and over its decode ticks,
+              and one profiled decode step's busy share
+
 Phase 2 builds the three kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -190,7 +216,12 @@ FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16, True),
                (1, 1000, 6, 2, 64, torch.bfloat16, True),
                (1, 1000, 8, 8, 128, torch.float32, True),
                (2, 300, 4, 2, 80, torch.bfloat16, True),
-               (1, 257, 6, 2, 96, torch.float32, True)]
+               (1, 257, 6, 2, 96, torch.float32, True),
+               # the families phase's prefills: qwen2-vl-2b, granite-moe,
+               # whisper-small's decoder
+               (4, 2048, 12, 2, 128, torch.bfloat16, True),
+               (4, 2048, 16, 8, 64, torch.bfloat16, True),
+               (4, 2048, 12, 12, 64, torch.bfloat16, True)]
 # the kernel each route launches, as the profiler names it
 FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_tc_kernel",
                       "simt": "flash_fwd_kernel"}
@@ -256,6 +287,20 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
 LOGIT_TOL_F32 = 2e-3
 SSM_ENGINE_REQUESTS, SSM_PROMPT_LENS, SSM_NEW_TOKENS = 8, (16, 64), 16
 HYBRID_PREFILL_B = 1
+
+# The families phase: every configuration the earlier phases do not
+# serve, at full width and depth (random weights from a CUDA generator
+# seeded with SEED), in the order run.  Flash launches per prefill (all on
+# the tensor-core route): one per causal self-attention of equal q/k and v
+# head dims, as `sdpa` decides; whisper's encoder (non-causal) and
+# cross-attention (Sq != Sk) and MLA (192/128 and 96/64 head dims) take
+# the plain path, as in the reference.
+FAMILY_FLASH = {"granite-moe-1b-a400m": 24, "qwen2-vl-2b": 28,
+                "whisper-small": 12, "minicpm3-4b": 0,
+                "deepseek-v2-lite-16b": 0}
+# qwen2-vl's prefill from embeddings: text, one image of 32 x 48 merged
+# patches (Qwen2-VL's M-RoPE: t, h, w offset by the text before it), text
+VLM_TEXT_BEFORE, VLM_GRID = 64, (32, 48)
 
 # The DSE service: TRIM's training-accelerator search over one smollm-135m
 # training block at its published width, lowered as
@@ -1653,6 +1698,329 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
     return launches["ssd"]
 
 
+def _family_batch(cfg, rng, dev):
+    """A prefill's inputs: tokens [PREFILL_B, PREFILL_S]; for encdec also
+    stub frame embeddings [PREFILL_B, PREFILL_S, d] (the reference's
+    prefill specs give both the same length)."""
+    b, s = PREFILL_B, PREFILL_S
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                        ).to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model), np.float32)).to(dev)
+    return batch
+
+
+def _patch_grid_batch(cfg, rng, dev):
+    """qwen2-vl's prefill from embeddings: [PREFILL_B, PREFILL_S, d] of
+    VLM_TEXT_BEFORE text tokens, one image of VLM_GRID merged patches and
+    text to PREFILL_S (stub embeddings, normal at the embedding table's
+    init scale of 0.02), and positions3 [3, B, S] as Qwen2-VL numbers
+    them: text at (i, i, i); after L text tokens a patch at (L, L + row,
+    L + col); text after the image from one past the largest position
+    before it.  -> (batch, the largest position)."""
+    b, s = PREFILL_B, PREFILL_S
+    (gh, gw), before = VLM_GRID, VLM_TEXT_BEFORE
+    end = before + gh * gw
+    pos = np.empty((3, s), np.int64)
+    pos[:, :before] = np.arange(before)
+    rows, cols = np.divmod(np.arange(gh * gw), gw)
+    pos[:, before:end] = before + np.stack([0 * rows, rows, cols])
+    pos[:, end:] = pos[:, :end].max() + 1 + np.arange(s - end)
+    embeds = 0.02 * rng.standard_normal((b, s, cfg.d_model), np.float32)
+    return ({"embeds": torch.from_numpy(embeds).to(dev),
+             "positions3": torch.from_numpy(pos).to(dev)[:, None].expand(
+                 3, b, s)}, int(pos.max()))
+
+
+@contextlib.contextmanager
+def _routing_recorded(choices: list, pinned=None):
+    """Appends each MoE layer's top-k expert ids [T, k] to `choices`, in
+    call order, while the block runs; with `pinned` (the `choices` of an
+    earlier run) each layer takes that run's experts instead of its own,
+    its gate weights renormalised from its own router probabilities as
+    `moe._route` does."""
+    from repro_torch.models import moe
+    route = moe._route
+
+    def recording(xt, router, cfg):
+        probs, top_p, top_i = route(xt, router, cfg)
+        if pinned is not None:
+            top_i = pinned[len(choices)]
+            top_p = probs.gather(-1, top_i)
+            top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True),
+                                            1e-9)
+        choices.append(top_i)
+        return probs, top_p, top_i
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def _routing_flips(choices_a, choices_b):
+    """-> [(MoE layer, tokens whose top-k expert set differs)] for each
+    layer where the two runs route any token differently."""
+    flips = []
+    for i, (a, b) in enumerate(zip(choices_a, choices_b)):
+        n = int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+        if n:
+            flips.append((i, n))
+    return flips
+
+
+def _prefill_routed(model, cfg, batch, flash_ops=None, pinned=None):
+    """-> (logits of the last position, each MoE layer's top-k expert
+    ids), with the flash hook installed if `flash_ops` is given, and every
+    MoE layer taking the experts `pinned` if given (`_routing_recorded`)."""
+    from repro_torch.models import attention, forward
+    choices = []
+    with torch.no_grad():
+        if flash_ops is not None:
+            flash_ops.install()
+        try:
+            with _routing_recorded(choices, pinned):
+                logits = forward(model, cfg, batch, logits_mode="last")
+        finally:
+            attention.set_flash_impl(None)
+    return logits, choices
+
+
+def _flash_vs_plain(model, cfg, batch, flash_ops, pin: bool = False):
+    """-> (flash logits, plain logits) of the last position, and the
+    routing flips between the two runs (`_routing_flips`) with the number
+    of MoE layers.  `pin`: the flash run takes the plain run's experts in
+    every MoE layer."""
+    plain, choices_p = _prefill_routed(model, cfg, batch)
+    fused, choices_f = _prefill_routed(model, cfg, batch, flash_ops,
+                                       choices_p if pin else None)
+    return fused, plain, _routing_flips(choices_f, choices_p), len(choices_f)
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def family_phase(dev, arch: str) -> dict:
+    """One configuration at full width and depth: init on the card, the
+    prefill [PREFILL_B, PREFILL_S] with the flash hook installed (launches
+    by route must be FAMILY_FLASH[arch], all "wgmma", and nothing else),
+    timed; flash against plain attention within LOGIT_TOL (where the bf16
+    logits miss and the two runs' top-k expert sets show that bf16
+    rounding in attention flipped a routing choice: with the flash run's
+    experts pinned to the plain run's, and on a float32 copy, route
+    "simt", within LOGIT_TOL_F32);
+    for `vlm` the same from embeddings and positions3 of a patch grid; the
+    engine under the serve phase's load -> the flash launches of one
+    prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import (attention, decode_step, forward,
+                                    init_model)
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config(arch)
+    tag = "families"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, torch.Generator(dev).manual_seed(SEED),
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(p.numel() for p in model.parameters())
+    mrope = (f", M-RoPE {cfg.mrope_sections}" if cfg.rope == "mrope"
+             else "")
+    attn_desc = (f"MLA ({cfg.n_heads} heads, q/k {cfg.qk_nope_dim}+"
+                 f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}, kv_lora "
+                 f"{cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank})"
+                 if cfg.attn == "mla" else
+                 f"GQA {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                 f"{cfg.d_head}{mrope}")
+    mlp_desc = (f"{cfg.n_experts} experts of {cfg.d_expert} top-{cfg.top_k}"
+                f", {cfg.n_shared_experts} shared, first "
+                f"{cfg.first_dense_layers} dense ({cfg.d_ff_dense})"
+                if cfg.family == "moe" else f"MLP {cfg.d_ff} {cfg.act}")
+    depth = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers"
+             if cfg.family == "encdec" else f"{cfg.n_layers} layers")
+    say(tag, f"{arch} ({cfg.family}): {n_params / 1e9:.3f}B params "
+        f"({cfg.param_dtype}), {depth} (full depth), d_model "
+        f"{cfg.d_model}, {attn_desc}, {mlp_desc}, vocab {cfg.vocab}; init "
+        f"{init_s:.2f} s, max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    rng = np.random.default_rng(SEED)
+    batch = _family_batch(cfg, rng, dev)
+    prefill = lambda: forward(model, cfg, batch, logits_mode="last")
+    want_flash = FAMILY_FLASH[arch]
+    with torch.no_grad():
+        flash_ops.install()
+        try:
+            reset_launch_counts()
+            logits = prefill()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = {**{k: 0 for k in launches}, "flash": want_flash,
+                    "flash_wgmma": want_flash}
+            if launches != want:
+                raise RuntimeError(f"{arch} prefill launches {launches}, "
+                                   f"want flash=flash_wgmma={want_flash} "
+                                   f"and no other")
+            if tuple(logits.shape) != (PREFILL_B, 1, cfg.vocab) \
+                    or not torch.isfinite(logits).all():
+                raise RuntimeError(f"{arch} prefill: bad logits "
+                                   f"{tuple(logits.shape)}")
+            ms = device_times_ms(prefill, n=5)
+            host_ms, enqueue_ms = host_times_ms(prefill)
+            wall, busy, n_ops, _, by_name = device_busy(prefill)
+        finally:
+            attention.set_flash_impl(None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shape = (f"frames [{PREFILL_B}, {PREFILL_S}, {cfg.d_model}] + tokens "
+             if cfg.family == "encdec" else "tokens ")
+    say(tag, f"{arch} (a) prefill {shape}[{PREFILL_B}, {PREFILL_S}] -> "
+        f"logits {tuple(logits.shape)}: flash launches "
+        f"{launches['flash']} (wgmma {launches['flash_wgmma']}, simt "
+        f"{launches['flash'] - launches['flash_wgmma']}; want "
+        f"{want_flash} on wgmma); {ms:.2f} ms by events, {host_ms:.2f} ms "
+        f"by the host clock ({enqueue_ms:.2f} ms of it to enqueue); "
+        f"profiled: {wall * 1e3:.2f} ms wall, device busy "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) in {n_ops} ops; "
+        f"{PREFILL_B * PREFILL_S / ms:.0f} prompt tokens/ms; max memory "
+        f"allocated {peak:.2f} GiB")
+    say(tag, f"{arch} (a) prefill's longest device activities: "
+        + top_activities(by_name))
+
+    compare_fp32 = False
+    if want_flash:
+        fused, plain, flips, n_moe = _flash_vs_plain(model, cfg, batch,
+                                                     flash_ops)
+        scale = float(plain.float().abs().max())
+        err = float((fused.float() - plain.float()).abs().max())
+        if err <= LOGIT_TOL * scale:
+            say(tag, f"{arch} flash against plain attention, bf16: max abs "
+                f"err {err:.4g} (logits up to {scale:.4g}, tol "
+                f"{LOGIT_TOL:g} of it)")
+        elif not flips:     # no MoE layer, or the same routing: a fault
+            _logits_close(f"{arch} flash vs plain", fused, plain)
+        else:
+            compare_fp32 = True
+            say(tag, f"{arch} flash against plain attention, bf16: max abs "
+                f"err {err:.4g} > {LOGIT_TOL:g} x {scale:.4g}; the two "
+                f"runs' top-k expert sets differ in {len(flips)} of "
+                f"{n_moe} MoE layers, first in layer {flips[0][0]} "
+                f"({flips[0][1]} of {PREFILL_B * PREFILL_S} tokens), "
+                f"tokens differing by layer {[n for _, n in flips]}: bf16 "
+                f"rounding in attention flips routing choices; compared "
+                f"on a float32 copy after the engine")
+            fused, plain, _, _ = _flash_vs_plain(model, cfg, batch,
+                                                 flash_ops, pin=True)
+            pinned_err = _max_abs(fused, plain)
+    if cfg.family == "vlm":
+        vbatch, top = _patch_grid_batch(cfg, rng, dev)
+        reset_launch_counts()
+        fused, plain, _, _ = _flash_vs_plain(model, cfg, vbatch, flash_ops)
+        launches_v = launch_counts()
+        if launches_v != want:
+            raise RuntimeError(f"{arch} prefill from embeds launches "
+                               f"{launches_v}, want flash=flash_wgmma="
+                               f"{want_flash} and no other")
+        err = _logits_close(f"{arch} flash vs plain from embeds", fused,
+                            plain)
+        flat = {**vbatch, "positions3": torch.arange(
+            PREFILL_S, device=dev).expand(3, PREFILL_B, PREFILL_S)}
+        with torch.no_grad():
+            moved = float((forward(model, cfg, flat, logits_mode="last")
+                           .float() - plain.float()).abs().max())
+        if not moved > 0:
+            raise RuntimeError(f"{arch}: positions3 of a patch grid give "
+                               f"the logits of 1-D positions")
+        gh, gw = VLM_GRID
+        say(tag, f"{arch} (a) prefill from embeds [{PREFILL_B}, "
+            f"{PREFILL_S}, {cfg.d_model}] and positions3 of a patch grid "
+            f"({VLM_TEXT_BEFORE} text, a {gh} x {gw} image, "
+            f"{PREFILL_S - VLM_TEXT_BEFORE - gh * gw} text; positions up "
+            f"to {top}): flash launches {launches_v['flash']} (wgmma "
+            f"{launches_v['flash_wgmma']}); against plain max abs err "
+            f"{err:.4g} (logits up to {float(plain.float().abs().max()):.4g}"
+            f", tol {LOGIT_TOL:g} of it); 1-D positions move the plain "
+            f"logits by {moved:.4g}")
+
+    tr = Tracer()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, model, batch=ENGINE_BATCH, max_len=ENGINE_MAX_LEN,
+                      tracer=tr, device=dev)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, ENGINE_REQUESTS)
+    for rid, n in enumerate(lens):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, int(n)).astype(np.int32),
+            max_new_tokens=NEW_TOKENS))
+    ticks = eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    out = [len(r.out_tokens) for r in eng.done.values()]
+    if sorted(eng.done) != list(range(ENGINE_REQUESTS)) \
+            or out != [NEW_TOKENS + 1] * ENGINE_REQUESTS:
+        raise RuntimeError(f"{arch} engine finished {sorted(eng.done)} "
+                           f"with {out} tokens")
+    sp = tr.span_times()
+    decoded = tr.metrics.snapshot()["counters"]["serve.tokens_decoded"]
+    toks = torch.zeros(ENGINE_BATCH, dtype=torch.int32, device=dev)
+    wall_1, busy_1, n_ops_1, _, by_1 = device_busy(
+        lambda: decode_step(model, cfg, eng.cache, toks, 0))
+    say(tag, f"{arch} (b) engine: {ENGINE_REQUESTS} requests "
+        f"(prompts {sorted(lens.tolist())}), {sum(out)} tokens out "
+        f"({decoded:.0f} from decode ticks), {ticks} ticks, {wall:.2f} s "
+        f"wall, {sum(out) / wall:.1f} tokens/s; token-by-token prefill "
+        f"{sp.get('serve.prefill', 0):.2f} s ({int(lens.sum())} steps), "
+        f"decode ticks {sp.get('serve.decode', 0):.2f} s "
+        f"({decoded / sp.get('serve.decode', float('nan')):.1f} tokens/s); "
+        f"one profiled decode_step: "
+        f"{wall_1 * 1e3:.2f} ms wall, device busy {busy_1 * 1e3:.3f} ms "
+        f"({100 * busy_1 / wall_1:.1f}%) in {n_ops_1} ops; longest: "
+        + top_activities(by_1, 3))
+    del eng
+
+    if compare_fp32:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        model.float()
+        plain, choices32 = _prefill_routed(model, cfg32, batch)
+        reset_launch_counts()
+        fused, choices = _prefill_routed(model, cfg32, batch, flash_ops)
+        launches32 = launch_counts()
+        if launches32["flash"] != want_flash or launches32["flash_wgmma"]:
+            raise RuntimeError(f"{arch} float32 prefill launches "
+                               f"{launches32}, want simt {want_flash}")
+        err = _logits_close(f"{arch} flash vs plain (float32)", fused,
+                            plain, tol=LOGIT_TOL_F32)
+        flips = _routing_flips(choices, choices32)
+        scale = float(plain.abs().max())
+        say(tag, f"{arch} flash against plain attention on a float32 copy "
+            f"({launches32['flash']} launches on simt): max abs err "
+            f"{err:.4g} (logits up to {scale:.4g}, tol {LOGIT_TOL_F32:g} "
+            f"of it); top-k expert sets differ in {len(flips)} of "
+            f"{len(choices)} MoE layers, tokens differing by layer "
+            f"{[n for _, n in flips]}")
+        # what the bf16 miss is made of: the same prefills in bf16 (the
+        # weights cast back, exactly) with every MoE layer's experts
+        # pinned to the float32 plain run's, against its logits
+        model.to(getattr(torch, cfg.param_dtype))
+        drift = {name: _max_abs(_prefill_routed(model, cfg, batch, ops,
+                                                choices32)[0], plain)
+                 for name, ops in (("plain", None), ("flash", flash_ops))}
+        say(tag, f"{arch} bf16 with the routing pinned: flash against plain"
+            f" {pinned_err:.4g} (the flash run's experts pinned to the "
+            f"plain run's); plain {drift['plain']:.4g} and flash "
+            f"{drift['flash']:.4g} from the float32 plain logits (the "
+            f"experts of its run; range {scale:.4g}): bf16 rounding "
+            f"through {cfg.n_layers} layers, measured, not held to a "
+            f"tolerance")
+    del model
+    torch.cuda.empty_cache()
+    say(tag, f"{arch}: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["flash"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1689,6 +2057,11 @@ def main() -> int:
         dev, get_config(SSM_ARCH), "ssm", PREFILL_B)
     ssm_serve_phase(dev, get_config(HYBRID_ARCH), "hybrid",
                     HYBRID_PREFILL_B, engine=False)
+    by_path = {SERVE_ARCH: records["flash_attention"]["launches"],
+               HYBRID_ARCH: 0}
+    for arch in FAMILY_FLASH:
+        by_path[arch] = family_phase(dev, arch)
+    records["flash_attention"]["launches_by_path"] = by_path
     say("done", f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ with the flash hook installed, at full width (bf16, random weights from
 seed 0), on one CUDA card, for the `repro_torch` found under `--src`:
 smollm-135m at B = 4 (the default), mamba2-2.7b at B = 4 or zamba2-2.7b at
 B = 1 (`--arch`; weights from a CUDA generator, as `chip_smoke.py` makes
-them):
+them), or the MoE models granite-moe-1b-a400m and deepseek-v2-lite-16b at
+B = 4 (the kernel timed: the MoE dispatch's cumsum, `tensor_kernel_scan*`):
 
   * host clock: one call from an idle device to the end of its work, and
     the part of it until `forward` returns (the host enqueueing it);
@@ -42,7 +43,9 @@ S, N = 2048, 10
 # batch rows of the prefill, the kernel timed and the part of its name
 # that the profiler's kernel names contain, per model
 ARCHS = {"smollm-135m": (4, "flash", "flash_fwd"),
-         "mamba2-2.7b": (4, "ssd", "ssd_"), "zamba2-2.7b": (1, "ssd", "ssd_")}
+         "mamba2-2.7b": (4, "ssd", "ssd_"), "zamba2-2.7b": (1, "ssd", "ssd_"),
+         "granite-moe-1b-a400m": (4, "scan", "tensor_kernel_scan"),
+         "deepseek-v2-lite-16b": (4, "scan", "tensor_kernel_scan")}
 
 
 def main() -> int:

@@ -59,12 +59,12 @@ def packed_from_arrays(static: HwStatic, factors, rank, store, eligible, *,
         n_valid=n if n_valid is None else n_valid)
 
 
-STACKED = ("layers", "dense_layers")
+STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers")
 
 
 def model_state_from_tree(tree: dict) -> Dict[str, np.ndarray]:
     """The reference's `init_model` params tree (nested dicts of arrays,
-    the blocks of `layers`/`dense_layers` stacked on axis 0) -> the port
+    the blocks of each `STACKED` key stacked on axis 0) -> the port
     `Model`'s `state_dict` keys (`layers.<i>.attn.wq`, ...) and arrays."""
     out: Dict[str, np.ndarray] = {}
 

@@ -12,10 +12,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve dse --clients 4 \\
         --strategy exhaustive --goal edp --device cpu
 
-Every ported family serves: `dense` (smollm-135m, ...), `ssm`
-(mamba2-2.7b) and `hybrid` (zamba2-2.7b).  `--full` serves the
-registered configuration at full width with random weights from `--seed`;
-without it, the reduced variant.  The reference's `--ckpt-dir`
+Every family of `configs/registry.py` serves: `dense` (smollm-135m,
+minicpm3-4b with MLA, ...), `moe` (granite-moe-1b-a400m,
+deepseek-v2-lite-16b), `vlm` (qwen2-vl-2b, token inputs), `encdec`
+(whisper-small; the engine leaves `enc_out` zeros, as the reference's
+does), `ssm` (mamba2-2.7b) and `hybrid` (zamba2-2.7b).  `--full` serves
+the registered configuration at full width with random weights from
+`--seed`; without it, the reduced variant.  The reference's `--ckpt-dir`
 (training's checkpoints, ROADMAP queue 1, item 8) is not ported yet.
 """
 from __future__ import annotations

@@ -1,8 +1,13 @@
-"""The LM model substrate: the `dense` family with GQA, the `ssm` family
-(Mamba2) and the `hybrid` family (Zamba2) (see `model.py`)."""
-from .model import (Block, MambaBlock, Model, decode_step, forward,
-                    init_cache, init_model)
+"""The LM model substrate: every family of `configs/registry.py` (`dense`,
+`moe`, `vlm` with GQA or MLA; `ssm`; `hybrid`; `encdec`) (see
+`model.py`)."""
+from .attention import MLA, cross_forward, cross_kv, mla_decode, mla_forward
+from .model import (Block, MambaBlock, Model, cache_specs, decode_step,
+                    forward, init_cache, init_model)
+from .moe import MoE, aux_load_balance_loss, moe_mlp
 from .ssm import Mamba2
 
-__all__ = ["Block", "MambaBlock", "Mamba2", "Model", "decode_step",
-           "forward", "init_cache", "init_model"]
+__all__ = ["Block", "MLA", "MambaBlock", "Mamba2", "MoE", "Model",
+           "aux_load_balance_loss", "cache_specs", "cross_forward",
+           "cross_kv", "decode_step", "forward", "init_cache", "init_model",
+           "mla_decode", "mla_forward", "moe_mlp"]

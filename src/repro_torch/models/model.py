@@ -1,14 +1,15 @@
-"""Model assembly: the decoder-only LM of the `dense` family with GQA, the
-`ssm` family (Mamba2) and the `hybrid` family (Zamba2: Mamba2 layers with
-one shared GQA block after every `shared_attn_every` of them).
+"""Model assembly for every family of `configs/registry.py`: the
+decoder-only LM (`dense`, `moe`, `vlm`; GQA or MLA), the `ssm` family
+(Mamba2), the `hybrid` family (Zamba2: Mamba2 layers with one shared GQA
+block after every `shared_attn_every` of them) and `encdec` (Whisper: an
+encoder, then a decoder with cross-attention).
 
-The port of the JAX package's `models/model.py` for those families.
-Parameters live in a `Model` (`nn.Module`) whose attribute names are the
-reference's param-tree keys; the reference's stacked `layers` axis becomes
-an `nn.ModuleList`, so `state_dict()` keys read `layers.<i>.attn.wq` or
-`layers.<i>.ssm.in_proj` (`convert.py` loads the reference's tree into
-it).  The other families (`moe`, `vlm`, `encdec`) and MLA raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+The port of the JAX package's `models/model.py`.  Parameters live in a
+`Model` (`nn.Module`) whose attribute names are the reference's param-tree
+keys; the reference's stacked `layers` axes become `nn.ModuleList`s, so
+`state_dict()` keys read `layers.<i>.attn.wq` or `dec_layers.<i>.cross.wk`
+(`convert.py` loads the reference's tree into it).  `lm_loss` and `remat`
+belong to training (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -23,33 +24,32 @@ from ..device import as_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import Norm, ParamInit, dt, embedding_lookup, norm
+from .layers import (Norm, ParamInit, dt, embedding_lookup, norm,
+                     sinusoidal_positions)
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not have yet (never a silent path)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP queue 1, item 7)")
-    if cfg.family != "ssm" and (cfg.attn != "gqa" or cfg.rope == "mrope"):
-        raise NotImplementedError(
-            f"{cfg.name}: attn={cfg.attn!r} rope={cfg.rope!r} is not ported "
-            f"yet (MLA and M-RoPE: ROADMAP queue 1, item 7)")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 # ==========================================================================
 # init
 # ==========================================================================
 class Block(nn.Module):
-    """One pre-norm attention block: `ln1`, `attn`, `ln2`, `mlp`."""
+    """One pre-norm attention block: `ln1`, `attn` (GQA, or MLA when
+    `cfg.attn == "mla"`), `ln_cross` and `cross` (when `cross`), `ln2`,
+    `mlp` (routed experts when `moe`, else a dense MLP of width `d_ff`)."""
 
-    def __init__(self, init: ParamInit, cfg: ModelConfig, d_ff: int):
+    def __init__(self, init: ParamInit, cfg: ModelConfig, d_ff: int, *,
+                 moe: bool = False, cross: bool = False):
         super().__init__()
         self.ln1 = Norm(init, cfg.d_model, cfg.norm)
-        self.attn = attn.init_gqa(init, cfg)
+        self.attn = attn.init_mla(init, cfg) if cfg.attn == "mla" \
+            else attn.init_gqa(init, cfg)
+        if cross:
+            self.ln_cross = Norm(init, cfg.d_model, cfg.norm)
+            self.cross = attn.init_cross(init, cfg)
         self.ln2 = Norm(init, cfg.d_model, cfg.norm)
-        self.mlp = moe_mod.init_dense_mlp(init, cfg, d_ff)
+        self.mlp = moe_mod.init_moe(init, cfg) if moe \
+            else moe_mod.init_dense_mlp(init, cfg, d_ff)
 
 
 class MambaBlock(nn.Module):
@@ -62,14 +62,17 @@ class MambaBlock(nn.Module):
 
 
 class Model(nn.Module):
-    """`embed` [V, d], `lm_head` [d, V] (untied only), `ln_f`,
-    `dense_layers` (when `first_dense_layers`), `layers` (`Block`s, or
-    `MambaBlock`s for the ssm and hybrid families) and `shared_block` (a
-    `Block`, hybrid only)."""
+    """`embed` [V, d], `lm_head` [d, V] (untied only), `ln_f`, and by
+    family: `dense_layers` (when `first_dense_layers`) and `layers`
+    (`Block`s; routed experts in the `moe` family), `layers` of
+    `MambaBlock`s (ssm, hybrid) and `shared_block` (hybrid), or
+    `enc_layers`, `dec_layers` (with cross-attention) and `ln_enc`
+    (encdec)."""
 
     def __init__(self, cfg: ModelConfig, init: ParamInit):
         super().__init__()
-        check_supported(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(cfg.family)
         self.cfg = cfg
         self.embed = init.dense(cfg.vocab, cfg.d_model, scale=0.02)
         if not cfg.tie_embeddings:
@@ -80,14 +83,22 @@ class Model(nn.Module):
                                         for _ in range(cfg.n_layers))
             if cfg.family == "hybrid":
                 self.shared_block = Block(init, cfg, cfg.d_ff)
-            return
-        n_dense = cfg.first_dense_layers
-        if n_dense:
-            self.dense_layers = nn.ModuleList(
-                Block(init, cfg, cfg.d_ff_dense or cfg.d_ff)
-                for _ in range(n_dense))
-        self.layers = nn.ModuleList(Block(init, cfg, cfg.d_ff)
-                                    for _ in range(cfg.n_layers - n_dense))
+        elif cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(Block(init, cfg, cfg.d_ff)
+                                            for _ in range(cfg.enc_layers))
+            self.dec_layers = nn.ModuleList(
+                Block(init, cfg, cfg.d_ff, cross=True)
+                for _ in range(cfg.dec_layers))
+            self.ln_enc = Norm(init, cfg.d_model, cfg.norm)
+        else:
+            n_dense = cfg.first_dense_layers
+            if n_dense:
+                self.dense_layers = nn.ModuleList(
+                    Block(init, cfg, cfg.d_ff_dense or cfg.d_ff)
+                    for _ in range(n_dense))
+            self.layers = nn.ModuleList(
+                Block(init, cfg, cfg.d_ff, moe=cfg.family == "moe")
+                for _ in range(cfg.n_layers - n_dense))
 
     def head(self, dtype: torch.dtype) -> torch.Tensor:
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -97,9 +108,10 @@ class Model(nn.Module):
 def init_model(cfg: ModelConfig, generator: torch.Generator = None, *,
                device="cuda") -> Model:
     """-> the model's parameters, drawn from `generator` (a CPU generator
-    seeded with 0 when none is given) and placed on `device` in
-    `cfg.param_dtype`.  The reference returns (params, specs); the specs
-    belong to the parallel slice, which is not ported yet."""
+    seeded with 0 when none is given; one on the card draws a large model
+    faster) and placed on `device` in `cfg.param_dtype`.  The reference
+    returns (params, specs); the specs belong to the parallel slice, which
+    is not ported yet."""
     dev = as_device(device)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(0)
@@ -109,12 +121,22 @@ def init_model(cfg: ModelConfig, generator: torch.Generator = None, *,
 # ==========================================================================
 # forward (train / prefill)
 # ==========================================================================
-def _attn_block_fwd(p: Block, cfg: ModelConfig, x, positions, *, causal=True,
-                    window=0):
+def _attn_block_fwd(p: Block, cfg: ModelConfig, x, positions, *, moe: bool,
+                    causal=True, window=0, enc_kv=None):
     h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
-    x = x + attn.gqa_forward(p.attn, cfg, h, positions, causal=causal,
+    if cfg.attn == "mla":
+        a = attn.mla_forward(p.attn, cfg, h, positions, causal=causal,
                              window=window)
+    else:
+        a = attn.gqa_forward(p.attn, cfg, h, positions, causal=causal,
+                             window=window)
+    x = x + a
+    if enc_kv is not None:
+        h = norm(x, p.ln_cross, cfg.norm, cfg.norm_eps)
+        x = x + attn.cross_forward(p.cross, cfg, h, enc_kv)
     h = norm(x, p.ln2, cfg.norm, cfg.norm_eps)
+    if moe:
+        return x + moe_mod.moe_mlp(p.mlp, cfg, h)
     return x + moe_mod.dense_mlp(p.mlp, cfg, h)
 
 
@@ -123,21 +145,44 @@ def _mamba_block_fwd(p: MambaBlock, cfg: ModelConfig, x):
     return x + ssm_mod.mamba2_forward(p.ssm, cfg, h)
 
 
+def _logits(params: Model, cfg: ModelConfig, x, logits_mode: str):
+    x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)
+    if logits_mode == "hidden":
+        return x
+    if logits_mode == "last":
+        x = x[:, -1:]
+    return torch.einsum("bsd,dv->bsv", x, params.head(x.dtype))
+
+
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
             remat: str = "dots_no_batch", logits_mode: str = "all"):
-    """batch["tokens"] [B, S] -> logits [B, S, V] (logits_mode="last":
-    [B, 1, V], the serving prefill's; "hidden": the final normed states).
+    """-> logits [B, S, V] (logits_mode="last": [B, 1, V], the serving
+    prefill's; "hidden": the final normed states).
+
+    batch keys by family:
+      dense/moe/ssm/hybrid: tokens [B,S]
+      vlm:                  embeds [B,S,D] and positions3 [3,B,S], or
+                            tokens [B,S]
+      encdec:               frames [B,Se,D], tokens [B,Sd]
 
     `remat` is the reference's training-memory option; it is accepted and
     ignored until training is ported.  Runs under the caller's grad mode;
     the flash and SSD kernels have no backward yet, so serve them under
     `no_grad`."""
-    check_supported(cfg)
     cdt = dt(cfg.compute_dtype)
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
-    b, s = tokens.shape
-    x = embedding_lookup(params.embed, tokens).to(cdt)
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    dev = params.embed.device
+    if cfg.family == "encdec":
+        return _encdec_forward(params, cfg, batch, logits_mode)
+    if cfg.family == "vlm" and "embeds" in batch:
+        x = torch.as_tensor(batch["embeds"], device=dev).to(cdt)
+        positions = torch.as_tensor(batch["positions3"], device=dev)
+    else:
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        b, s = tokens.shape
+        x = embedding_lookup(params.embed, tokens).to(cdt)
+        positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+        if cfg.rope == "mrope":
+            positions = positions[None].expand(3, b, s)
     if cfg.family == "ssm":
         for blk in params.layers:
             x = _mamba_block_fwd(blk, cfg, x)
@@ -147,35 +192,59 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
             for blk in params.layers[gi * k:(gi + 1) * k]:
                 x = _mamba_block_fwd(blk, cfg, x)
             x = _attn_block_fwd(params.shared_block, cfg, x, positions,
-                                window=cfg.sliding_window)
+                                moe=False, window=cfg.sliding_window)
     else:
         if cfg.first_dense_layers:
             cfg_dense = dataclasses.replace(cfg,
                                             d_ff=cfg.d_ff_dense or cfg.d_ff)
             for blk in params.dense_layers:
-                x = _attn_block_fwd(blk, cfg_dense, x, positions)
+                x = _attn_block_fwd(blk, cfg_dense, x, positions, moe=False)
         for blk in params.layers:
             x = _attn_block_fwd(blk, cfg, x, positions,
+                                moe=cfg.family == "moe",
                                 window=cfg.sliding_window)
-    x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)
-    if logits_mode == "hidden":
-        return x
-    if logits_mode == "last":
-        x = x[:, -1:]
-    return torch.einsum("bsd,dv->bsv", x, params.head(cdt))
+    return _logits(params, cfg, x, logits_mode)
+
+
+def _encdec_forward(params: Model, cfg: ModelConfig, batch,
+                    logits_mode: str = "all"):
+    """Whisper: fixed sinusoidal positions; a non-causal encoder over the
+    stub frame embeddings, normed by `ln_enc`; a causal decoder whose
+    blocks cross-attend to the encoder's output."""
+    cdt = dt(cfg.compute_dtype)
+    dev = params.embed.device
+    frames = torch.as_tensor(batch["frames"], device=dev).to(cdt)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    b, se = frames.shape[:2]
+    sd = tokens.shape[1]
+    pos_e = torch.arange(se, device=dev)[None, :].expand(b, se)
+    pos_d = torch.arange(sd, device=dev)[None, :].expand(b, sd)
+    x = frames + sinusoidal_positions(se, cfg.d_model).to(dev, cdt)[None]
+    for blk in params.enc_layers:
+        x = _attn_block_fwd(blk, cfg, x, pos_e, moe=False, causal=False)
+    enc_out = norm(x, params.ln_enc, cfg.norm, cfg.norm_eps)
+    y = embedding_lookup(params.embed, tokens).to(cdt)
+    y = y + sinusoidal_positions(sd, cfg.d_model).to(dev, cdt)[None]
+    for blk in params.dec_layers:
+        enc_kv = attn.cross_kv(blk.cross, cfg, enc_out)
+        y = _attn_block_fwd(blk, cfg, y, pos_d, moe=False, causal=True,
+                            enc_kv=enc_kv)
+    return _logits(params, cfg, y, logits_mode)
 
 
 # ==========================================================================
 # decode (single-token serve step against a cache)
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Stacked per-layer caches for decode: k/v [L, B, max_len, Hkv, hd];
-    for the ssm and hybrid families `layers` holds conv [L, B, K-1,
-    conv_dim] (compute dtype) and ssm [L, B, H, N, P] (float32), and the
-    hybrid's `shared` k/v [n_groups, B, max_len, Hkv, hd]."""
+               device="cuda") -> Dict[str, Any]:
+    """Stacked per-layer caches for decode (`cache_specs` names their
+    axes): GQA k/v [L, B, max_len, Hkv, hd]; MLA c_kv [L, B, max_len,
+    kv_lora] and k_rope [L, B, max_len, rope]; for the ssm and hybrid
+    families `layers` holds conv [L, B, K-1, conv_dim] (compute dtype) and
+    ssm [L, B, H, N, P] (float32), and the hybrid's `shared` k/v
+    [n_groups, ...]; encdec's `dec` k/v [dec_layers, ...] and `enc_out`
+    [B, max_len, d] of zeros (nothing fills it, as in the reference)."""
     dev = as_device(device)
-    check_supported(cfg)
     cdt = dt(cfg.compute_dtype)
 
     def stack(make, n):
@@ -191,18 +260,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if cfg.family == "hybrid":
             cache["shared"] = stack(gqa, cfg.n_layers // cfg.shared_attn_every)
         return cache
-    cache = {"layers": stack(gqa, cfg.n_layers - cfg.first_dense_layers)}
+    if cfg.family == "encdec":
+        return {"dec": stack(gqa, cfg.dec_layers),
+                "enc_out": torch.zeros((batch, max_len, cfg.d_model),
+                                       dtype=cdt, device=dev)}
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    make = gqa
+    if cfg.attn == "mla":
+        make = lambda: attn.mla_init_cache(cfg, batch, max_len, cdt, dev)
+    cache = {"layers": stack(make, cfg.n_layers - cfg.first_dense_layers)}
     if cfg.first_dense_layers:
-        cache["dense_layers"] = stack(gqa, cfg.first_dense_layers)
+        cache["dense_layers"] = stack(make, cfg.first_dense_layers)
     return cache
 
 
-def _attn_block_decode(p: Block, cfg: ModelConfig, x, cache, pos):
+def cache_specs(cfg: ModelConfig):
+    """Logical-axis spec tree matching init_cache's structure."""
+    gqa = {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+           "v": ("layers", "batch", "kv_seq", "kv_heads", None)}
+    mla = {"c_kv": ("layers", "batch", "kv_seq", None),
+           "k_rope": ("layers", "batch", "kv_seq", None)}
+    ssm = {"conv": ("layers", "batch", None, "ssm_inner"),
+           "ssm": ("layers", "batch", "ssm_heads", None, None)}
+    if cfg.family in ("dense", "moe", "vlm"):
+        per = mla if cfg.attn == "mla" else gqa
+        out = {"layers": per}
+        if cfg.first_dense_layers:
+            out["dense_layers"] = per
+        return out
+    if cfg.family == "ssm":
+        return {"layers": ssm}
+    if cfg.family == "hybrid":
+        return {"layers": ssm, "shared": gqa}
+    if cfg.family == "encdec":
+        return {"dec": gqa,
+                "enc_out": ("batch", "kv_seq", "embed")}
+    raise ValueError(cfg.family)
+
+
+def _attn_block_decode(p: Block, cfg: ModelConfig, x, cache, pos,
+                       enc_out=None, absorb=False):
     h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
-    a, cache = attn.gqa_decode(p.attn, cfg, h, cache, pos,
-                               window=cfg.sliding_window)
+    if cfg.attn == "mla":
+        a, cache = attn.mla_decode(p.attn, cfg, h, cache, pos, absorb=absorb)
+    else:
+        a, cache = attn.gqa_decode(p.attn, cfg, h, cache, pos,
+                                   window=cfg.sliding_window)
     x = x + a
+    if enc_out is not None:
+        h = norm(x, p.ln_cross, cfg.norm, cfg.norm_eps)
+        enc_kv = attn.cross_kv(p.cross, cfg, enc_out)
+        x = x + attn.cross_forward(p.cross, cfg, h, enc_kv)
     h = norm(x, p.ln2, cfg.norm, cfg.norm_eps)
+    if cfg.family == "moe" and isinstance(p.mlp, moe_mod.MoE):
+        return x + moe_mod.moe_mlp(p.mlp, cfg, h), cache
     return x + moe_mod.dense_mlp(p.mlp, cfg, h), cache
 
 
@@ -217,9 +329,8 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
                 mla_absorb: bool = False):
     """token: [B] int; pos: current cache length.  -> (logits [B, V],
     cache).  The cache is updated in place (`attention.gqa_decode`,
-    `ssm.mamba2_decode`) and returned; `mla_absorb` only matters for MLA,
-    which is not ported."""
-    check_supported(cfg)
+    `attention.mla_decode`, `ssm.mamba2_decode`) and returned;
+    `mla_absorb` picks MLA's weight-absorbed decode."""
     cdt = dt(cfg.compute_dtype)
     token = torch.as_tensor(token, device=params.embed.device)
     x = embedding_lookup(params.embed, token)[:, None, :].to(cdt)
@@ -227,9 +338,10 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
     def layer(stacked, i):
         return {k: v[i] for k, v in stacked.items()}
 
-    def run(blocks, stacked, cfg_b, x):
+    def run(blocks, stacked, cfg_b, x, enc_out=None):
         for i, blk in enumerate(blocks):
-            x, _ = _attn_block_decode(blk, cfg_b, x, layer(stacked, i), pos)
+            x, _ = _attn_block_decode(blk, cfg_b, x, layer(stacked, i), pos,
+                                      enc_out=enc_out, absorb=mla_absorb)
         return x
 
     def run_ssm(blocks, first, x):
@@ -245,9 +357,13 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
             x = run_ssm(params.layers[gi * k:(gi + 1) * k], gi * k, x)
             x, _ = _attn_block_decode(params.shared_block, cfg, x,
                                       layer(cache["shared"], gi), pos)
+    elif cfg.family == "encdec":
+        x = run(params.dec_layers, cache["dec"], cfg, x,
+                enc_out=cache["enc_out"])
     else:
         if cfg.first_dense_layers:
-            cfg_d = dataclasses.replace(cfg, d_ff=cfg.d_ff_dense or cfg.d_ff)
+            cfg_d = dataclasses.replace(cfg, d_ff=cfg.d_ff_dense or cfg.d_ff,
+                                        family="dense")
             x = run(params.dense_layers, cache["dense_layers"], cfg_d, x)
         x = run(params.layers, cache["layers"], cfg, x)
     x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)

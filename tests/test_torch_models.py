@@ -291,13 +291,6 @@ def test_untied_head_matches_jax():
            MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
-                                  "qwen2-vl-2b", "whisper-small"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(reduced_config(arch), device="cpu")
-
-
 def test_load_model_params_refuses_a_foreign_tree(models):
     _, pj, ct, _ = models[None]
     tree = jax.tree_util.tree_map(np.asarray, pj)
