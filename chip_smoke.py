@@ -31,8 +31,9 @@ catches its own failure.
   4. explore  paper Algorithm 1 at full width: AlexNet-CIFAR training at
               batch 64 (29 workloads) over the 8-architecture quickstart
               space, `MapperConfig(max_mappings=20000, seed=0)`, traced,
-              three runs of each engine in turns (cuda, torch, cuda, ...),
-              medians and each engine's split by span and by driver phase
+              one run of each engine in turns (cuda, then torch; medians
+              of more runs are `scripts/dse_timing.py`'s), each engine's
+              wall and split by span and by driver phase
               (`explore` is `run_search(strategy="exhaustive",
               batching="per-arch")`); the single-architecture kernel must
               launch, and the winners must equal those of the plain oracle
@@ -77,7 +78,7 @@ catches its own failure.
               by the host clock (a call's latency and the part of it
               spent enqueueing) and with the device's busy share;
               (b) `ServeEngine(batch=4, max_len=256)` answers 8 requests
-              (prompts of 16-128 tokens, 32 new tokens each), and
+              (prompts of 8-32 tokens, 16 new tokens each), and
               teacher-forced `decode_step` on a 128-token prompt matches
               the prefill's last logits
   9. ssd      both SSD-scan kernels against their plain version
@@ -99,8 +100,7 @@ catches its own failure.
               the SSD op 64 times, all on route "tc", and nothing else
               (the counters count op calls); timed, with the
               device's busy share; (b) `ServeEngine(batch=4, max_len=256)`
-              answers 8 requests (prompts of 16-64 tokens, 16 new tokens
-              each); (c) with the weights cast to float32 (bf16 rounding
+              answers the serve phase's load; (c) with the weights cast to float32 (bf16 rounding
               through 64 random layers is amplified past any useful
               tolerance), teacher-forced `decode_step` (the pure
               recurrence) over 128 tokens matches the kernel prefill's
@@ -151,7 +151,7 @@ catches its own failure.
               a 32 x 48 image, text), where M-RoPE's three sections
               differ: 28 launches again, flash within LOGIT_TOL of plain;
               `ServeEngine(batch=4, max_len=256)` answers the serve
-              phase's load (8 requests, prompts of 16-128 tokens, 32 new
+              phase's load (8 requests, prompts of 8-32 tokens, 16 new
               each), with tokens/s over the run and over its decode ticks,
               and one profiled decode step's busy share
 
@@ -200,6 +200,8 @@ ARCH_SPACE = dict(num_pes=(64, 256), rf_words=(128, 256),
                   zero_skip=True)
 CHECK_ARCH = "pe256_rf256_gb131072"     # the issue's intra[2] architecture
 MAX_MAPPINGS = 20000
+# explore runs once per engine: a check and a split, not a median
+EXPLORE_RUNS = 1
 SEARCH_ROUND, SEARCH_BUDGET = 2, 4
 SOURCE = "src/repro_torch/kernels/mapspace_eval/csrc/mapspace_eval.cu"
 
@@ -231,8 +233,11 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 SERVE_ARCH = "smollm-135m"
 SEED = 0
 PREFILL_B, PREFILL_S = 4, 2048
+# Every engine's load: 8 requests on 4 slots (the second four take slots
+# as the first finish).  The engines prefill token by token, as the
+# reference does, so the prompt tokens set most of each engine's wall.
 ENGINE_BATCH, ENGINE_MAX_LEN, ENGINE_REQUESTS = 4, 256, 8
-PROMPT_LENS, NEW_TOKENS, TEACHER_LEN = (16, 128), 32, 128
+PROMPT_LENS, NEW_TOKENS, TEACHER_LEN = (8, 32), 16, 128
 # Logits of two bf16 forwards that round at different points (the fused
 # kernel's bf16 output against the plain path's, 30 residual blocks
 # deep), compared in float32: max |a - b| <= LOGIT_TOL * max |b|.  bf16
@@ -285,7 +290,6 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
 # sum in other orders and are amplified alike: ~1e-4 of the range
 # measured, 2e-3 allowed; a wrong kernel is off by the range itself.
 LOGIT_TOL_F32 = 2e-3
-SSM_ENGINE_REQUESTS, SSM_PROMPT_LENS, SSM_NEW_TOKENS = 8, (16, 64), 16
 HYBRID_PREFILL_B = 1
 
 # The families phase: every configuration the earlier phases do not
@@ -741,12 +745,13 @@ def _phases(times: dict) -> str:
 
 
 def explore_phase(task, archs, dev):
-    """Algorithm 1 on the card, each engine three times in turns ->
-    launches of the kernel engine's median run."""
+    """Algorithm 1 on the card, each engine EXPLORE_RUNS times in turns
+    -> launches of the kernel engine's median run."""
     from repro_torch.core import MapperConfig, explore
     cfg = MapperConfig(max_mappings=MAX_MAPPINGS, seed=0)
     res = engine_turns(lambda engine: explore(
-        task, archs, goal="edp", cfg=cfg, backend=engine, device=dev))
+        task, archs, goal="edp", cfg=cfg, backend=engine, device=dev),
+        n=EXPLORE_RUNS)
     (wall, walls, sp, m, launches, out) = res["cuda"]
     (ref_wall, ref_walls, ref_sp, _, ref_launches, ref) = res["torch"]
     if launches["single"] == 0:
@@ -1640,24 +1645,24 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
         tr = Tracer()
         eng = ServeEngine(cfg, model, batch=ENGINE_BATCH,
                           max_len=ENGINE_MAX_LEN, tracer=tr, device=dev)
-        lens = rng.integers(SSM_PROMPT_LENS[0], SSM_PROMPT_LENS[1] + 1,
-                            SSM_ENGINE_REQUESTS)
+        lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                            ENGINE_REQUESTS)
         for rid, n in enumerate(lens):
             eng.submit(Request(rid=rid, prompt=rng.integers(
                 0, cfg.vocab, int(n)).astype(np.int32),
-                max_new_tokens=SSM_NEW_TOKENS))
+                max_new_tokens=NEW_TOKENS))
         ticks = eng.run_until_drained()
         wall = time.perf_counter() - t0
         out = [len(r.out_tokens) for r in eng.done.values()]
-        if sorted(eng.done) != list(range(SSM_ENGINE_REQUESTS)) \
-                or out != [SSM_NEW_TOKENS + 1] * SSM_ENGINE_REQUESTS:
+        if sorted(eng.done) != list(range(ENGINE_REQUESTS)) \
+                or out != [NEW_TOKENS + 1] * ENGINE_REQUESTS:
             raise RuntimeError(f"engine finished {sorted(eng.done)} with "
                                f"{out} tokens")
         sp = tr.span_times()
         toks = torch.zeros(ENGINE_BATCH, dtype=torch.int32, device=dev)
         wall_1, busy_1, n_ops_1, _, by_1 = device_busy(
             lambda: decode_step(model, cfg, eng.cache, toks, 0))
-        say(tag, f"(b) engine: {SSM_ENGINE_REQUESTS} requests (prompts "
+        say(tag, f"(b) engine: {ENGINE_REQUESTS} requests (prompts "
             f"{sorted(lens.tolist())}), {sum(out)} tokens out, {ticks} "
             f"ticks, {wall:.2f} s wall, {sum(out) / wall:.1f} tokens/s; "
             f"token-by-token prefill {sp.get('serve.prefill', 0):.2f} s "

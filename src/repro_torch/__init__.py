@@ -12,4 +12,6 @@ take `device=` (default "cuda") and never move to the host on their own.
   search    cross-architecture fused mapspace scoring (`fused_best`)
   obs       host-side spans, counters and metrics
   convert   the JAX side's numpy/dict inputs -> the port's objects
+  analysis  trimlint for the port (standard library only):
+            `python -m repro_torch.analysis --strict`
 """

@@ -19,6 +19,18 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
+#: trimlint for the port: the standard library only
+ANALYSIS_MODULES = [
+    "repro_torch.analysis", "repro_torch.analysis.__main__",
+    "repro_torch.analysis.engine", "repro_torch.analysis.baseline",
+    "repro_torch.analysis.output", "repro_torch.analysis.rules",
+    "repro_torch.analysis.rules.cache_key",
+    "repro_torch.analysis.rules.determinism",
+    "repro_torch.analysis.rules.registry_cov",
+    "repro_torch.analysis.rules.sync",
+    "repro_torch.analysis.rules.tracing",
+]
+
 SLICE_MODULES = [
     "repro_torch", "repro_torch.convert", "repro_torch.device",
     "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
@@ -53,8 +65,8 @@ SLICE_MODULES = [
     "repro_torch.search.cache", "repro_torch.search.driver",
     "repro_torch.obs.progress", "repro_torch.obs.manifest",
     "repro_torch.core.lower_lm", "repro_torch.core.simulator",
-    "repro_torch.serve.dse_service",
-]
+    "repro_torch.serve.dse_service", "repro_torch.core.tpu_adapter",
+] + ANALYSIS_MODULES
 
 
 def _imported_roots(path: Path):
@@ -85,6 +97,32 @@ def test_slice_modules_load_without_jax_or_repro():
             "    importlib.import_module(m)\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_analysis_imports_only_the_standard_library():
+    """The port's analyzer runs on a bare Python: every absolute import
+    in its files is a standard-library module, and importing it and
+    running every rule over the repo loads no torch, numpy, jax or
+    repro."""
+    pkg = PORT / "analysis"
+    for path in sorted(pkg.rglob("*.py")):
+        bad = [(line, mod) for line, mod in _imported_roots(path)
+               if mod not in sys.stdlib_module_names]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    code = ("import sys\n"
+            f"for m in {ANALYSIS_MODULES!r}:\n"
+            "    __import__(m)\n"
+            "from repro_torch.analysis import run_analysis\n"
+            f"run_analysis({str(ROOT)!r})\n"
+            "top = {m.split('.')[0] for m in sys.modules}\n"
+            "bad = top & {'torch', 'numpy', 'jax', 'jaxlib', 'repro'}\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
