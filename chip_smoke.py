@@ -154,6 +154,30 @@ catches its own failure.
               phase's load (8 requests, prompts of 8-32 tokens, 16 new
               each), with tokens/s over the run and over its decode ticks,
               and one profiled decode step's busy share
+ 14. train    the port's training driver, which launches none of the
+              kernels (the reference trains on plain attention and on
+              Mamba2's differentiable scan): (a) `launch/train.py::
+              train_loop` on smollm-135m at full width and depth (bf16
+              params, float32 master copies), [8, 2048] in 2
+              microbatches, remat "dots_no_batch", 12 steps into a
+              temporary checkpoint directory, then again to 16: it must
+              resume at step 12 and run 4; every loss finite and the last
+              below the first; step walls (host clock) and CUDA-event
+              times, tokens/s, model FLOP/s as a share of the bf16 peak,
+              peak memory, one profiled step's busy share and longest
+              device ops, an unprofiled step's wall and enqueue time,
+              checkpoint bytes and copy, write and restore times; (b) at
+              the same shape through `make_train_step`: microbatches 1
+              against 2 (loss 1e-3 relative, params 5e-3, the reference
+              test's contract), remat "none", "full" and "dots_no_batch"
+              (loss 1e-3 relative; each one's peak memory, and a second
+              step's wall and enqueue time), a saved and restored state
+              bit-equal leaf by leaf with its next step's loss within
+              1e-3 of the live state's; (c) mamba2-2.7b at full width
+              with 2 layers, [2, 512]: one train step with finite loss
+              and gradient norm and no SSD launch, and in float32
+              `lm_loss` on the SSD kernel (under no_grad, route "tc")
+              against the model's scan (under autograd) within SSD_TOL
 
 Phase 2 builds the three kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -162,6 +186,7 @@ line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import re
@@ -2026,6 +2051,296 @@ def family_phase(dev, arch: str) -> dict:
     return launches["flash"]
 
 
+# The train phase: the port's training driver (`launch/train.py`) at full
+# width and depth, bf16 params with float32 master copies.  The reference
+# trains on its plain paths (no flash hook; Mamba2 on its differentiable
+# scan), so no kernel may launch here.  Model FLOPs of one step (PaLM,
+# arXiv:2204.02311 app. B): tokens x (6 N + 12 L H hd S), N every
+# parameter (the tied head is the embedding's matmul use), remat's
+# recomputation not counted.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 2048, 8, 2
+TRAIN_REMAT = "dots_no_batch"
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 16
+# (b): microbatches 1 against 2 as the reference's contract states them
+# (loss relative, params absolute); remat modes and a restored state
+# against the live one: loss relative (CUDA's embedding backward adds
+# with atomics, so two runs differ in the last bits)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_TOL = 1e-3, 5e-3
+TRAIN_REMAT_MODES = ("none", "full", "dots_no_batch")
+# (c): mamba2-2.7b at full width, 2 of its 64 layers, [2, 512]
+TRAIN_SSM_LAYERS, TRAIN_SSM_SEQ, TRAIN_SSM_BATCH = 2, 512, 2
+
+
+def model_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step over `tokens` tokens of length
+    `seq` (the PaLM count above)."""
+    return tokens * (6 * n_params + 12 * cfg.n_layers * cfg.n_heads
+                     * cfg.d_head * seq)
+
+
+def _no_kernel_launched(what: str) -> None:
+    counts = launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{what} launched kernels {counts}; the "
+                           f"training path has no kernel")
+
+
+def _clone_state(state):
+    from repro_torch.train.train_step import TrainState
+    return TrainState(copy.deepcopy(state.params), copy.deepcopy(state.opt),
+                      copy.deepcopy(state.compress_err))
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def train_phase(dev):
+    """(a) `train_loop` on TRAIN_ARCH at full width and depth, TRAIN_STEPS
+    steps into a temporary checkpoint directory, then again to
+    TRAIN_RESUME_STEPS (it must resume and run the rest); losses finite
+    and falling; step walls, device times, tokens/s, model FLOP share,
+    peak memory, one profiled step, checkpoint bytes and times.  (b) at
+    the same shape through `make_train_step`: microbatches 1 against 2,
+    the remat modes against each other (with their peak memory and step
+    time), and a
+    saved and restored state against the live one.  (c) mamba2-2.7b, 2
+    layers at full width: one train step (the model's scan, no SSD
+    launch), and `lm_loss` on the kernel (no grad) against the scan
+    (grad) in float32."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_model, lm_loss
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (TrainConfig, TrainState,
+                                              make_train_step)
+    tag = "train"
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps, ckpt_times = [], {"copy": [], "write": [], "restore": []}
+    real = (launch_train.make_train_step, ckpt.save, ckpt.restore,
+            ckpt.AsyncCheckpointer.save_async)
+
+    def timed_make(*args, **kwargs):
+        step = real[0](*args, **kwargs)
+
+        def timed(state, batch):
+            a, b = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            a.record()
+            out = step(state, batch)
+            b.record()
+            b.synchronize()
+            steps.append((time.perf_counter() - t0, a.elapsed_time(b),
+                          step, state, batch))
+            return out
+        return timed
+
+    def timer(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            ckpt_times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_train.make_train_step = timed_make
+        ckpt.save = timer("write", real[1])
+        ckpt.restore = timer("restore", real[2])
+        ckpt.AsyncCheckpointer.save_async = timer("copy", real[3])
+        try:
+            kw = dict(arch=TRAIN_ARCH, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, reduced=False,
+                      microbatches=TRAIN_MICRO, remat=TRAIN_REMAT,
+                      ckpt_dir=tmp, log_every=4, device=dev)
+            first = launch_train.train_loop(steps=TRAIN_STEPS, **kw)
+            n_first = len(steps)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ckpt_bytes = sum(f.stat().st_size for f in Path(
+                tmp, f"step_{TRAIN_STEPS}").iterdir())
+            rest = launch_train.train_loop(steps=TRAIN_RESUME_STEPS, **kw)
+        finally:
+            (launch_train.make_train_step, ckpt.save, ckpt.restore,
+             ckpt.AsyncCheckpointer.save_async) = real
+        _no_kernel_launched("train_loop")
+        losses = first + rest
+        if len(first) != TRAIN_STEPS \
+                or len(rest) != TRAIN_RESUME_STEPS - TRAIN_STEPS \
+                or len(ckpt_times["restore"]) != 1:
+            raise RuntimeError(f"train_loop ran {len(first)} then "
+                               f"{len(rest)} steps, restored "
+                               f"{len(ckpt_times['restore'])} times")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"losses {losses}")
+        _, _, step_fn, state, batch = steps[-1]
+        wall, busy, n_ops, _, by_name = device_busy(
+            lambda: step_fn(state, batch))
+        step_ms, enqueue_ms = host_times_ms(lambda: step_fn(state, batch),
+                                            n=3)
+    host = [s[0] for s in steps[1:n_first]]
+    dev_ms = [s[1] for s in steps[1:n_first]]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    flops = model_flops(cfg, n_params, tokens, TRAIN_SEQ)
+    wall_med = statistics.median(host)
+    share = flops / wall_med / PEAK_FLOP_PER_S[torch.bfloat16]
+    writes = ", ".join(f"{t:.2f}" for t in ckpt_times["write"])
+    say(tag, f"(a) train_loop {TRAIN_ARCH} full width and depth "
+        f"({n_params / 1e6:.1f}M params, {cfg.param_dtype} + float32 "
+        f"master), [{TRAIN_BATCH}, {TRAIN_SEQ}] in {TRAIN_MICRO} "
+        f"microbatches, remat {TRAIN_REMAT}: {TRAIN_STEPS} steps, then "
+        f"resumed at step {TRAIN_STEPS} for {len(rest)}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; no kernel launched")
+    say(tag, f"(a) step (median of steps 1-{n_first - 1}): "
+        f"{wall_med * 1e3:.1f} ms host clock, "
+        f"{statistics.median(dev_ms):.1f} ms between CUDA events; first "
+        f"step {steps[0][0] * 1e3:.1f} ms; {tokens / wall_med:.0f} "
+        f"tokens/s; model FLOPs {flops:.4g} a step = tokens x (6 N + 12 L "
+        f"H hd S), {flops / wall_med / 1e12:.1f} TFLOP/s = "
+        f"{100 * share:.2f}% of the bf16 dense peak (989 TFLOP/s); peak "
+        f"{peak:.2f} GiB allocated")
+    say(tag, f"(a) one profiled step: {wall * 1e3:.1f} ms wall, device busy "
+        f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%; "
+        f"{100 * busy * 1e3 / step_ms:.1f}% of an unprofiled step's "
+        f"{step_ms:.1f} ms, of which the host takes {enqueue_ms:.1f} ms to "
+        f"enqueue) in {n_ops} ops; longest: " + top_activities(by_name))
+    say(tag, f"(a) checkpoint: {ckpt_bytes / 2 ** 30:.3f} GiB a step "
+        f"({len(ckpt_times['write'])} saves); copy to host "
+        f"{', '.join(f'{t:.2f}' for t in ckpt_times['copy'])} s (the "
+        f"loop waits), write {writes} s (a thread); restore "
+        f"{ckpt_times['restore'][0]:.2f} s")
+    del state, step_fn, steps
+
+    # (b) invariants through make_train_step at the same shape
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    opt_cfg = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS)
+    base = TrainState(model, init_opt_state(opt_cfg, model))
+    data = make_source(DataConfig(seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, vocab=cfg.vocab))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()} for i in range(2)]
+    reset_launch_counts()
+    out = {}
+    for mb in (1, TRAIN_MICRO):
+        st = _clone_state(base)
+        step = make_train_step(cfg, opt_cfg, TrainConfig(
+            remat=TRAIN_REMAT, microbatches=mb))
+        st, m = step(st, batches[0])
+        out[mb] = (float(m["loss"]), st)
+    (l1, s1), (l2, s2) = out[1], out[TRAIN_MICRO]
+    p_err = max(float((a - b).detach().abs().max()) for a, b in zip(
+        s1.params.parameters(), s2.params.parameters()))
+    w_err = max(float((s1.opt.master[n] - s2.opt.master[n]).abs().max())
+                for n in s1.opt.master)
+    if _rel(l2, l1) > TRAIN_LOSS_RTOL or p_err > TRAIN_PARAM_TOL:
+        raise RuntimeError(f"microbatches 1 vs {TRAIN_MICRO}: loss {l1} vs "
+                           f"{l2}, params {p_err}")
+    del out, s2
+    peaks, remat_loss, remat_ms = {}, {}, {}
+    for mode in TRAIN_REMAT_MODES:
+        st = _clone_state(base)
+        step = make_train_step(cfg, opt_cfg, TrainConfig(
+            remat=mode, microbatches=TRAIN_MICRO))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st, m = step(st, batches[0])
+        remat_loss[mode] = float(m["loss"])
+        peaks[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+        # a second step, timed: its wall and the part spent enqueueing
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, m = step(st, batches[1])
+        t_enq = time.perf_counter() - t1
+        float(m["loss"])
+        remat_ms[mode] = ((time.perf_counter() - t1) * 1e3, t_enq * 1e3)
+        del st
+    bad = [k for k, v in remat_loss.items()
+           if _rel(v, remat_loss["none"]) > TRAIN_LOSS_RTOL]
+    if bad:
+        raise RuntimeError(f"remat losses {remat_loss}")
+    step = make_train_step(cfg, opt_cfg, TrainConfig(
+        remat=TRAIN_REMAT, microbatches=TRAIN_MICRO))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 1, s1.leaves())
+        other = init_model(cfg, torch.Generator(dev).manual_seed(SEED + 1),
+                           device=dev)
+        fresh = TrainState(other, init_opt_state(opt_cfg, other))
+        fresh.load_leaves(ckpt.restore(tmp, 1, fresh.leaves()))
+    live, back = s1.leaves(), fresh.leaves()
+    unequal = [k for k in live if not torch.equal(live[k], back[k])]
+    if unequal or fresh.opt.step != s1.opt.step:
+        raise RuntimeError(f"restored leaves differ: {unequal[:5]}")
+    _, m_live = step(s1, batches[1])
+    _, m_back = step(fresh, batches[1])
+    l_live, l_back = float(m_live["loss"]), float(m_back["loss"])
+    if _rel(l_back, l_live) > TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"restored state's next loss {l_back} vs "
+                           f"{l_live}")
+    _no_kernel_launched("the invariants")
+    say(tag, f"(b) microbatches 1 vs {TRAIN_MICRO}: loss {l1:.6f} vs "
+        f"{l2:.6f} (rel {_rel(l2, l1):.2e}, tol {TRAIN_LOSS_RTOL:g}), "
+        f"params max |diff| {p_err:.3g} (tol {TRAIN_PARAM_TOL:g}), float32 "
+        f"masters {w_err:.3g}; remat "
+        + ", ".join(f"{k} loss {remat_loss[k]:.6f} peak {peaks[k]:.2f} GiB"
+                    f" step {remat_ms[k][0]:.1f} ms ({remat_ms[k][1]:.1f} "
+                    f"to enqueue)" for k in TRAIN_REMAT_MODES)
+        + f"; saved and restored state: {len(live)} leaves bit-equal, next "
+        f"loss {l_back:.6f} vs live {l_live:.6f} (rel "
+        f"{_rel(l_back, l_live):.2e}); {time.perf_counter() - t0:.1f} s")
+    del base, s1, fresh, model, other, live, back
+
+    # (c) Mamba2 under autograd on the card
+    t0 = time.perf_counter()
+    scfg = dataclasses.replace(get_config(SSM_ARCH),
+                               n_layers=TRAIN_SSM_LAYERS)
+    smodel = init_model(scfg, torch.Generator(dev).manual_seed(SEED),
+                        device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, scfg.vocab, (TRAIN_SSM_BATCH, TRAIN_SSM_SEQ))).to(dev)
+    sstate = TrainState(smodel, init_opt_state(OptConfig(), smodel))
+    reset_launch_counts()
+    _, m = make_train_step(scfg, OptConfig(), TrainConfig(
+        remat=TRAIN_REMAT))(sstate, {"tokens": toks})
+    gnorm = float(m["grad_norm"])
+    if not np.isfinite(gnorm) or not np.isfinite(float(m["loss"])):
+        raise RuntimeError(f"mamba2 train step: loss {m['loss']}, grad norm "
+                           f"{gnorm}")
+    _no_kernel_launched("the mamba2 train step")
+    scfg32 = dataclasses.replace(scfg, param_dtype="float32",
+                                 compute_dtype="float32")
+    smodel.float()
+    with torch.no_grad():
+        on_kernel = float(lm_loss(smodel, scfg32, {"tokens": toks}))
+    kernel_calls = launch_counts()
+    reset_launch_counts()
+    on_scan = float(lm_loss(smodel, scfg32, {"tokens": toks}).detach())
+    _no_kernel_launched("lm_loss under autograd")
+    if kernel_calls["ssd"] != TRAIN_SSM_LAYERS \
+            or kernel_calls["ssd_tc"] != TRAIN_SSM_LAYERS:
+        raise RuntimeError(f"lm_loss under no_grad launched {kernel_calls}")
+    if _rel(on_kernel, on_scan) > SSD_TOL:
+        raise RuntimeError(f"mamba2 lm_loss: kernel {on_kernel} vs scan "
+                           f"{on_scan}")
+    say(tag, f"(c) {SSM_ARCH} at full width, {TRAIN_SSM_LAYERS} layers, "
+        f"[{TRAIN_SSM_BATCH}, {TRAIN_SSM_SEQ}]: a train step (the model's "
+        f"scan) loss {float(m['loss']):.4f}, grad norm {gnorm:.4g}, no SSD "
+        f"launch; float32 lm_loss on the kernel (no grad, "
+        f"{kernel_calls['ssd_tc']} launches on \"tc\") {on_kernel:.7f} vs the "
+        f"scan (grad) {on_scan:.7f}: rel {_rel(on_kernel, on_scan):.2e} "
+        f"(tol {SSD_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2067,6 +2382,7 @@ def main() -> int:
     for arch in FAMILY_FLASH:
         by_path[arch] = family_phase(dev, arch)
     records["flash_attention"]["launches_by_path"] = by_path
+    train_phase(dev)
     say("done", f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

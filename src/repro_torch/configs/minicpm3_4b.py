@@ -1,0 +1,7 @@
+"""Config for `minicpm3-4b` (see registry.py for the full definition
+with source citations).  Exposes CONFIG / REDUCED for --arch selection."""
+from .registry import get_config, reduced_config
+
+ARCH_ID = "minicpm3-4b"
+CONFIG = get_config(ARCH_ID)
+REDUCED = reduced_config(ARCH_ID)

@@ -1,0 +1,7 @@
+"""Config for `qwen2-vl-2b` (see registry.py for the full definition
+with source citations).  Exposes CONFIG / REDUCED for --arch selection."""
+from .registry import get_config, reduced_config
+
+ARCH_ID = "qwen2-vl-2b"
+CONFIG = get_config(ARCH_ID)
+REDUCED = reduced_config(ARCH_ID)

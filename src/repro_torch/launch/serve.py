@@ -18,8 +18,9 @@ deepseek-v2-lite-16b), `vlm` (qwen2-vl-2b, token inputs), `encdec`
 (whisper-small; the engine leaves `enc_out` zeros, as the reference's
 does), `ssm` (mamba2-2.7b) and `hybrid` (zamba2-2.7b).  `--full` serves
 the registered configuration at full width with random weights from
-`--seed`; without it, the reduced variant.  The reference's `--ckpt-dir`
-(training's checkpoints, ROADMAP queue 1, item 8) is not ported yet.
+`--seed`; without it, the reduced variant.  `--ckpt-dir` serves the
+parameters of the latest checkpoint there (`launch/train.py` writes them
+as `params/<name>` leaves).
 """
 from __future__ import annotations
 
@@ -37,10 +38,12 @@ def main_lm(argv: Optional[List[str]] = None):
     from ..device import as_device
     from ..models import init_model
     from ..serve.engine import Request, ServeEngine
+    from ..train import checkpoint as ckpt
 
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve lm")
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -53,6 +56,15 @@ def main_lm(argv: Optional[List[str]] = None):
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     params = init_model(cfg, torch.Generator().manual_seed(args.seed),
                         device=dev)
+    if args.ckpt_dir:
+        step = ckpt.latest_step(args.ckpt_dir)
+        if step is not None:
+            like = {f"params/{n}": p for n, p in params.named_parameters()}
+            restored = ckpt.restore(args.ckpt_dir, step, like)
+            with torch.no_grad():
+                for key, p in like.items():
+                    p.copy_(restored[key])
+            print(f"[serve] restored params from step {step}")
     engine = ServeEngine(cfg, params, batch=args.batch,
                          max_len=args.max_len, device=dev)
     rng = np.random.default_rng(0)

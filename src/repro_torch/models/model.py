@@ -8,16 +8,23 @@ The port of the JAX package's `models/model.py`.  Parameters live in a
 `Model` (`nn.Module`) whose attribute names are the reference's param-tree
 keys; the reference's stacked `layers` axes become `nn.ModuleList`s, so
 `state_dict()` keys read `layers.<i>.attn.wq` or `dec_layers.<i>.cross.wk`
-(`convert.py` loads the reference's tree into it).  `lm_loss` and `remat`
-belong to training (ROADMAP queue 1, item 8).
+(`convert.py` loads the reference's tree into it).
+
+Training: `lm_loss` is the next-token cross-entropy, and `remat` recomputes
+each layer block in the backward pass (`torch.utils.checkpoint`, the
+counterpart of the reference's `jax.checkpoint` around its layer scan).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..configs.base import ModelConfig
 from ..device import as_device
@@ -28,6 +35,46 @@ from .layers import (Norm, ParamInit, dt, embedding_lookup, norm,
                      sinusoidal_positions)
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+_aten = torch.ops.aten
+_MM = (_aten.mm.default, _aten.addmm.default)
+_BMM = (_aten.bmm.default, _aten.baddbmm.default)
+
+
+def _saves_dot(batch_dims: bool):
+    """A selective-checkpoint policy that saves the outputs of matrix
+    products and recomputes everything else.  `x @ w` of a 3-D x and a
+    2-D w lowers to `aten.mm`; every `torch.einsum` lowers to `aten.bmm`,
+    one without batch dims (the attention projections "bsd,dhk->bshk")
+    as a bmm of batch 1.  With `batch_dims` every product is saved (JAX's
+    `checkpoint_dots`); without, only those of no batch dims: mm, addmm,
+    and bmm/baddbmm of batch 1 (`checkpoint_dots_with_no_batch_dims`), so
+    the batched attention and expert products are recomputed."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in _MM or (op in _BMM and (batch_dims
+                                         or args[0].shape[0] == 1)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+# remat mode -> the checkpoint's context factory (None: no checkpoint;
+# "full" saves only each block's inputs and recomputes the whole block)
+REMAT_POLICIES = {
+    "none": None,
+    "full": noop_context_fn,
+    "dots": _saves_dot(batch_dims=True),
+    "dots_no_batch": _saves_dot(batch_dims=False),
+}
+
+
+def _remat(fn, remat: str):
+    """`fn` recomputed in the backward pass as `remat` says; as it is
+    when `remat` is "none" or no gradient is being recorded."""
+    context_fn = REMAT_POLICIES[remat]
+    if context_fn is None or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
 
 
 # ==========================================================================
@@ -165,14 +212,17 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
                             tokens [B,S]
       encdec:               frames [B,Se,D], tokens [B,Sd]
 
-    `remat` is the reference's training-memory option; it is accepted and
-    ignored until training is ported.  Runs under the caller's grad mode;
-    the flash and SSD kernels have no backward yet, so serve them under
-    `no_grad`."""
+    `remat` (a key of `REMAT_POLICIES`) applies to every layer block of a
+    stack, as the reference's layer scans take it (the hybrid's shared
+    block is not rematerialised there either); it changes memory, not
+    values, and only while gradients are recorded.  Runs under the
+    caller's grad mode; the flash and SSD kernels have no backward, so
+    serving runs under `no_grad` (the Mamba2 layer takes its plain scan
+    when gradients are recorded, `ssm.mamba2_forward`)."""
     cdt = dt(cfg.compute_dtype)
     dev = params.embed.device
     if cfg.family == "encdec":
-        return _encdec_forward(params, cfg, batch, logits_mode)
+        return _encdec_forward(params, cfg, batch, remat, logits_mode)
     if cfg.family == "vlm" and "embeds" in batch:
         x = torch.as_tensor(batch["embeds"], device=dev).to(cdt)
         positions = torch.as_tensor(batch["positions3"], device=dev)
@@ -183,14 +233,16 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
         positions = torch.arange(s, device=dev)[None, :].expand(b, s)
         if cfg.rope == "mrope":
             positions = positions[None].expand(3, b, s)
+    mamba = _remat(_mamba_block_fwd, remat)
+    block = _remat(_attn_block_fwd, remat)
     if cfg.family == "ssm":
         for blk in params.layers:
-            x = _mamba_block_fwd(blk, cfg, x)
+            x = mamba(blk, cfg, x)
     elif cfg.family == "hybrid":
         k = cfg.shared_attn_every
         for gi in range(cfg.n_layers // k):
             for blk in params.layers[gi * k:(gi + 1) * k]:
-                x = _mamba_block_fwd(blk, cfg, x)
+                x = mamba(blk, cfg, x)
             x = _attn_block_fwd(params.shared_block, cfg, x, positions,
                                 moe=False, window=cfg.sliding_window)
     else:
@@ -198,16 +250,20 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
             cfg_dense = dataclasses.replace(cfg,
                                             d_ff=cfg.d_ff_dense or cfg.d_ff)
             for blk in params.dense_layers:
-                x = _attn_block_fwd(blk, cfg_dense, x, positions, moe=False)
+                x = block(blk, cfg_dense, x, positions, moe=False)
         for blk in params.layers:
-            x = _attn_block_fwd(blk, cfg, x, positions,
-                                moe=cfg.family == "moe",
-                                window=cfg.sliding_window)
+            x = block(blk, cfg, x, positions, moe=cfg.family == "moe",
+                      window=cfg.sliding_window)
     return _logits(params, cfg, x, logits_mode)
 
 
+def _dec_block_fwd(p: Block, cfg: ModelConfig, y, positions, enc_out):
+    return _attn_block_fwd(p, cfg, y, positions, moe=False, causal=True,
+                           enc_kv=attn.cross_kv(p.cross, cfg, enc_out))
+
+
 def _encdec_forward(params: Model, cfg: ModelConfig, batch,
-                    logits_mode: str = "all"):
+                    remat: str = "none", logits_mode: str = "all"):
     """Whisper: fixed sinusoidal positions; a non-causal encoder over the
     stub frame embeddings, normed by `ln_enc`; a causal decoder whose
     blocks cross-attend to the encoder's output."""
@@ -220,15 +276,15 @@ def _encdec_forward(params: Model, cfg: ModelConfig, batch,
     pos_e = torch.arange(se, device=dev)[None, :].expand(b, se)
     pos_d = torch.arange(sd, device=dev)[None, :].expand(b, sd)
     x = frames + sinusoidal_positions(se, cfg.d_model).to(dev, cdt)[None]
+    block = _remat(_attn_block_fwd, remat)
     for blk in params.enc_layers:
-        x = _attn_block_fwd(blk, cfg, x, pos_e, moe=False, causal=False)
+        x = block(blk, cfg, x, pos_e, moe=False, causal=False)
     enc_out = norm(x, params.ln_enc, cfg.norm, cfg.norm_eps)
     y = embedding_lookup(params.embed, tokens).to(cdt)
     y = y + sinusoidal_positions(sd, cfg.d_model).to(dev, cdt)[None]
+    dec_block = _remat(_dec_block_fwd, remat)
     for blk in params.dec_layers:
-        enc_kv = attn.cross_kv(blk.cross, cfg, enc_out)
-        y = _attn_block_fwd(blk, cfg, y, pos_d, moe=False, causal=True,
-                            enc_kv=enc_kv)
+        y = dec_block(blk, cfg, y, pos_d, enc_out)
     return _logits(params, cfg, y, logits_mode)
 
 
@@ -369,3 +425,51 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
     x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params.head(cdt))[:, 0]
     return logits, cache
+
+
+# ==========================================================================
+# training loss
+# ==========================================================================
+CE_CHUNK = 512  # sequence positions per cross-entropy chunk
+
+
+def _chunk_nll(hc, tc, head):
+    """Per-position negative log-likelihood [B, s] of targets `tc` [B, s]
+    under the head's logits of hidden states `hc` [B, s, d], the
+    log-softmax in float32."""
+    logits = torch.einsum("bsd,dv->bsv", hc, head)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -lp.gather(-1, tc[..., None])[..., 0]
+
+
+def lm_loss(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
+            remat: str = "dots_no_batch"):
+    """Next-token cross-entropy (float32 scalar), the mean over [B, S-1]:
+    targets are `tokens` shifted by one (the vlm family's `labels` when
+    the batch has them; encdec's decoder `tokens`).
+
+    As in the reference, the head + log-softmax run in chunks of
+    `CE_CHUNK` positions, each under `torch.utils.checkpoint`, only when
+    S-1 is a multiple of CE_CHUNK larger than it; otherwise in one piece,
+    which holds the [B, S-1, V] float32 log-probabilities for the
+    backward pass (at S = 2048, S-1 = 2047 is not a multiple: one piece).
+    """
+    cdt = dt(cfg.compute_dtype)
+    dev = params.embed.device
+    hidden = forward(params, cfg, batch, remat=remat, logits_mode="hidden")
+    tokens = batch["labels"] if cfg.family == "vlm" and "labels" in batch \
+        else batch["tokens"]
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    head = params.head(cdt)
+    h = hidden[:, :-1]
+    targets = tokens[:, 1:]
+    b, sm1, _ = h.shape
+    chunk = CE_CHUNK
+    if sm1 % chunk != 0 or sm1 <= chunk:
+        return _chunk_nll(h, targets, head).mean()
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(0, sm1, chunk):
+        total = total + checkpoint(_chunk_nll, h[:, i:i + chunk],
+                                   targets[:, i:i + chunk], head,
+                                   use_reentrant=False).sum()
+    return total / (b * sm1)

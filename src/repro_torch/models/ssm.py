@@ -3,8 +3,11 @@
 The port of the JAX package's `models/ssm.py`.  Prefill runs the chunked
 SSD scan through `kernels/ssd_scan/ops.py::ssd_scan` (its plain version
 `ssd_chunk_scan_streaming` for CPU tensors, the CUDA kernel for CUDA
-tensors); decode is the O(1) recurrent state update.  The plain SSD
-functions live in `kernels/ssd_scan/ref.py` and are re-exported here.
+tensors); training runs the model's own differentiable scan,
+`ssd_chunk_scan_streaming`, as the reference's model does in every mode
+(the kernel has no backward); decode is the O(1) recurrent state update.
+The plain SSD functions live in `kernels/ssd_scan/ref.py` and are
+re-exported here.
 
 Layout: x [B, T, D] -> in_proj -> (z, xc, B, C, dt); causal depthwise conv
 on (xc, B, C); SSD over heads H = d_inner / headdim with scalar A per head;
@@ -81,9 +84,13 @@ def _dt_and_a(p: Mamba2, dtr):
 
 
 def mamba2_forward(p: Mamba2, cfg: ModelConfig, x):
-    """x: [B,T,D] -> [B,T,D].  The SSD scan runs on `ssd_ops.ssd_scan`
-    (the CUDA kernel for CUDA tensors), on float32 views of the conv
-    output: xh, B and C are strided slices of one float32 tensor."""
+    """x: [B,T,D] -> [B,T,D].  The SSD scan runs on float32 views of the
+    conv output (xh, B and C are strided slices of one float32 tensor):
+    while gradients are recorded for any of its inputs, on the
+    differentiable `ssd_chunk_scan_streaming` (the reference's scan, in
+    every mode there); otherwise on `ssd_ops.ssd_scan` (the CUDA kernel
+    for CUDA tensors, which raises under autograd).  The choice is by
+    grad mode only, never by a failure."""
     zxbcdt = x @ p.in_proj
     z, xc, B, C, dtr = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xc, B, C], dim=-1)
@@ -97,7 +104,11 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x):
     Bh = conv32[..., di:di + g * n].reshape(b, t, g, n)
     Ch = conv32[..., di + g * n:].reshape(b, t, g, n)
     dt, A = _dt_and_a(p, dtr)
-    y = ssd_ops.ssd_scan(xh, dt, A, Bh, Ch, chunk=cfg.chunk)
+    scan_args = (xh, dt, A, Bh, Ch)
+    if torch.is_grad_enabled() and any(v.requires_grad for v in scan_args):
+        y = ssd_chunk_scan_streaming(*scan_args, cfg.chunk)
+    else:
+        y = ssd_ops.ssd_scan(*scan_args, chunk=cfg.chunk)
     y = y + xh * p.D.float()[None, None, :, None]
     y = y.reshape(b, t, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p.out_norm, cfg.norm_eps)

@@ -66,7 +66,15 @@ SLICE_MODULES = [
     "repro_torch.obs.progress", "repro_torch.obs.manifest",
     "repro_torch.core.lower_lm", "repro_torch.core.simulator",
     "repro_torch.serve.dse_service", "repro_torch.core.tpu_adapter",
-] + ANALYSIS_MODULES
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.train",
+    "repro_torch.train.optimizer", "repro_torch.train.train_step",
+    "repro_torch.train.checkpoint", "repro_torch.train.resilience",
+    "repro_torch.parallel", "repro_torch.parallel.collectives",
+    "repro_torch.launch.train",
+] + [f"repro_torch.configs.{m}" for m in (
+    "deepseek_v2_lite_16b", "granite_moe_1b_a400m", "mamba2_2_7b",
+    "minicpm3_4b", "nemotron_4_15b", "phi3_mini_3_8b", "qwen2_vl_2b",
+    "smollm_135m", "whisper_small", "zamba2_2_7b")] + ANALYSIS_MODULES
 
 
 def _imported_roots(path: Path):
@@ -149,6 +157,7 @@ def _entry_points():
     task = tc.alexnet_cifar(batch_size=4)
     from repro_torch.configs import reduced_config
     from repro_torch.launch.serve import main_dse, main_lm
+    from repro_torch.launch.train import train_loop
     from repro_torch.models import init_model
     from repro_torch.serve import DSEService, ServeEngine
     lm = reduced_config("smollm-135m")
@@ -171,13 +180,16 @@ def _entry_points():
             [MapspaceJob(tag=0, hw=hw, workload=wl, packed=pm)], **kw),
         "run_search": lambda **kw: run_search(
             task, [hw], cfg=tc.MapperConfig(max_mappings=80), **kw),
+        "train_loop": lambda **kw: train_loop(
+            arch="smollm-135m", steps=1, seq_len=8, global_batch=2,
+            log_every=50, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["explore", "score_mapspace", "best_index",
                                   "fused_best", "fused_launch", "run_search",
                                   "init_model", "ServeEngine", "main_lm",
-                                  "DSEService", "main_dse"])
+                                  "DSEService", "main_dse", "train_loop"])
 def test_no_silent_cpu_fallback(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
