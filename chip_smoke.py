@@ -159,12 +159,16 @@ catches its own failure.
               Mamba2's differentiable scan): (a) `launch/train.py::
               train_loop` on smollm-135m at full width and depth (bf16
               params, float32 master copies), [8, 2048] in 2
-              microbatches, remat "dots_no_batch", 12 steps into a
-              temporary checkpoint directory, then again to 16: it must
-              resume at step 12 and run 4; every loss finite and the last
-              below the first; step walls (host clock) and CUDA-event
-              times, tokens/s, model FLOP/s as a share of the bf16 peak,
-              peak memory, one profiled step's busy share and longest
+              microbatches, remat "dots_no_batch", through the mesh path
+              (DTensor on a (1, 1) `DeviceMesh`, NCCL, a world of one),
+              8 steps into a temporary checkpoint directory, then again
+              to 10: it must resume at step 8 and run 2; every loss
+              finite and the last below the first; its first loss within
+              1e-3 relative of the plain `make_train_step`'s from the
+              same state and batch (from (b)), and both step times; step
+              walls (host clock) and CUDA-event times, tokens/s, model
+              FLOP/s as a share of the bf16 peak, peak memory, one
+              profiled step's busy share and longest
               device ops, an unprofiled step's wall and enqueue time,
               checkpoint bytes and copy, write and restore times; (b) at
               the same shape through `make_train_step`: microbatches 1
@@ -178,6 +182,17 @@ catches its own failure.
               and gradient norm and no SSD launch, and in float32
               `lm_loss` on the SSD kernel (under no_grad, route "tc")
               against the model's scan (under autograd) within SSD_TOL
+ 15. parallel the sharded step builders (`launch/steps.py`) on a (1, 1)
+              mesh, smollm-135m at full width and depth: `build_prefill_
+              step` at [4, 2048] with the flash hook (30 launches on
+              route "wgmma", each on local shards through `local_map`;
+              logits within LOGIT_TOL of the unsharded prefill), 8
+              `build_decode_step` steps against `decode_step` (each
+              within LOGIT_TOL), the host's enqueue time of the sharded
+              and the plain prefill and decode step; then one host-only
+              dry-run cell (`launch/dryrun.run_cell` smollm-135m
+              train_4k on the fake 16 x 16 mesh, one microbatch) and its
+              roofline terms
 
 Phase 2 builds the three kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
@@ -2061,7 +2076,8 @@ def family_phase(dev, arch: str) -> dict:
 TRAIN_ARCH = "smollm-135m"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 2048, 8, 2
 TRAIN_REMAT = "dots_no_batch"
-TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 16
+# (the mesh path's host time is up to ~2x the plain step's)
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 8, 10
 # (b): microbatches 1 against 2 as the reference's contract states them
 # (loss relative, params absolute); remat modes and a restored state
 # against the live one: loss relative (CUDA's embedding backward adds
@@ -2114,6 +2130,7 @@ def train_phase(dev):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import ensure_process_group
     from repro_torch.models import init_model, lm_loss
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import OptConfig, init_opt_state
@@ -2124,11 +2141,11 @@ def train_phase(dev):
     cfg = get_config(TRAIN_ARCH)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steps, ckpt_times = [], {"copy": [], "write": [], "restore": []}
-    real = (launch_train.make_train_step, ckpt.save, ckpt.restore,
+    real = (launch_train.build_train_step, ckpt.save, ckpt.restore,
             ckpt.AsyncCheckpointer.save_async)
 
-    def timed_make(*args, **kwargs):
-        step = real[0](*args, **kwargs)
+    def timed_build(*args, **kwargs):
+        step, shapes, placements = real[0](*args, **kwargs)
 
         def timed(state, batch):
             a, b = (torch.cuda.Event(enable_timing=True),
@@ -2141,7 +2158,7 @@ def train_phase(dev):
             steps.append((time.perf_counter() - t0, a.elapsed_time(b),
                           step, state, batch))
             return out
-        return timed
+        return timed, shapes, placements
 
     def timer(key, fn):
         def run(*args, **kwargs):
@@ -2151,10 +2168,13 @@ def train_phase(dev):
             return out
         return run
 
+    # the phase owns the process group (NCCL, a world of one), so that the
+    # profiled step below still has it after train_loop returns
+    ensure_process_group(dev)
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        launch_train.make_train_step = timed_make
+        launch_train.build_train_step = timed_build
         ckpt.save = timer("write", real[1])
         ckpt.restore = timer("restore", real[2])
         ckpt.AsyncCheckpointer.save_async = timer("copy", real[3])
@@ -2170,7 +2190,7 @@ def train_phase(dev):
                 tmp, f"step_{TRAIN_STEPS}").iterdir())
             rest = launch_train.train_loop(steps=TRAIN_RESUME_STEPS, **kw)
         finally:
-            (launch_train.make_train_step, ckpt.save, ckpt.restore,
+            (launch_train.build_train_step, ckpt.save, ckpt.restore,
              ckpt.AsyncCheckpointer.save_async) = real
         _no_kernel_launched("train_loop")
         losses = first + rest
@@ -2185,16 +2205,20 @@ def train_phase(dev):
         _, _, step_fn, state, batch = steps[-1]
         wall, busy, n_ops, _, by_name = device_busy(
             lambda: step_fn(state, batch))
+        mesh_step_ms, mesh_enqueue_ms = host_times_ms(
+            lambda: step_fn(state, batch), n=3)
         step_ms, enqueue_ms = host_times_ms(lambda: step_fn(state, batch),
                                             n=3)
     host = [s[0] for s in steps[1:n_first]]
     dev_ms = [s[1] for s in steps[1:n_first]]
     n_params = sum(p.numel() for p in state.params.parameters())
+    first_loss = first[0]
     flops = model_flops(cfg, n_params, tokens, TRAIN_SEQ)
     wall_med = statistics.median(host)
     share = flops / wall_med / PEAK_FLOP_PER_S[torch.bfloat16]
     writes = ", ".join(f"{t:.2f}" for t in ckpt_times["write"])
-    say(tag, f"(a) train_loop {TRAIN_ARCH} full width and depth "
+    say(tag, f"(a) train_loop on the (1, 1) mesh path (DTensor, NCCL world "
+        f"of one) {TRAIN_ARCH} full width and depth "
         f"({n_params / 1e6:.1f}M params, {cfg.param_dtype} + float32 "
         f"master), [{TRAIN_BATCH}, {TRAIN_SEQ}] in {TRAIN_MICRO} "
         f"microbatches, remat {TRAIN_REMAT}: {TRAIN_STEPS} steps, then "
@@ -2245,6 +2269,10 @@ def train_phase(dev):
     if _rel(l2, l1) > TRAIN_LOSS_RTOL or p_err > TRAIN_PARAM_TOL:
         raise RuntimeError(f"microbatches 1 vs {TRAIN_MICRO}: loss {l1} vs "
                            f"{l2}, params {p_err}")
+    # (a)'s first step: the same state, batch, schedule and microbatches
+    if _rel(first_loss, l2) > TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"the (1, 1) mesh path's first loss {first_loss} "
+                           f"vs the plain step's {l2}")
     del out, s2
     peaks, remat_loss, remat_ms = {}, {}, {}
     for mode in TRAIN_REMAT_MODES:
@@ -2268,6 +2296,14 @@ def train_phase(dev):
            if _rel(v, remat_loss["none"]) > TRAIN_LOSS_RTOL]
     if bad:
         raise RuntimeError(f"remat losses {remat_loss}")
+    plain_ms, plain_enq = remat_ms[TRAIN_REMAT]
+    say(tag, f"(a) vs (b): first loss on the (1, 1) mesh path "
+        f"{first_loss:.6f}, plain make_train_step {l2:.6f} (rel "
+        f"{_rel(first_loss, l2):.2e}, tol {TRAIN_LOSS_RTOL:g}); a step at "
+        f"[{TRAIN_BATCH}, {TRAIN_SEQ}], {TRAIN_MICRO} microbatches, remat "
+        f"{TRAIN_REMAT}: mesh path {mesh_step_ms:.1f} ms "
+        f"({mesh_enqueue_ms:.1f} to enqueue), plain {plain_ms:.1f} ms "
+        f"({plain_enq:.1f} to enqueue) (host clock, from an idle device)")
     step = make_train_step(cfg, opt_cfg, TrainConfig(
         remat=TRAIN_REMAT, microbatches=TRAIN_MICRO))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2341,6 +2377,116 @@ def train_phase(dev):
     say(tag, f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 15: the sharded builders on a (1, 1) mesh; the dry-run cell runs
+# on the host (fake process group, meta tensors), one microbatch
+PARALLEL_DECODE_STEPS, PARALLEL_MAX_LEN = 8, 64
+PARALLEL_DRYRUN = ("smollm-135m", "train_4k")
+
+
+def parallel_phase(dev) -> int:
+    """smollm-135m at full width and depth on a (1, 1) `DeviceMesh`: the
+    sharded prefill through the flash kernel on local shards against the
+    unsharded one, sharded decode steps against `decode_step`, the host's
+    enqueue time of each; then one dry-run cell on the host.  -> the
+    flash launches of the sharded prefill."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import (attention, decode_step, forward,
+                                    init_cache, init_model)
+    from repro_torch.parallel.sharding import make_rules
+    tag = "parallel"
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    rules = make_rules(mesh)
+    model = init_model(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    spec = ShapeSpec("prefill", PREFILL_S, PREFILL_B, "prefill")
+    prefill, _, (p_pl, _) = steps.build_prefill_step(cfg, mesh, rules, spec)
+    sharded = steps.init_sharded_params(
+        cfg, mesh, p_pl, device=dev,
+        generator=torch.Generator().manual_seed(SEED))
+    run_sharded = lambda: prefill(sharded, {"tokens": tokens})
+    run_plain = lambda: forward(model, cfg, {"tokens": tokens},
+                                logits_mode="last")
+    with torch.no_grad():
+        ops.install()
+        try:
+            reset_launch_counts()
+            got = run_sharded().full_tensor()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            if launches["flash"] != cfg.n_layers \
+                    or launches["flash_wgmma"] != cfg.n_layers \
+                    or launches["single"] or launches["multi"] \
+                    or launches["ssd"]:
+                raise RuntimeError(f"sharded prefill launches {launches}, "
+                                   f"want flash=flash_wgmma={cfg.n_layers}")
+            want = run_plain()
+            pre_err = _logits_close("sharded prefill", got, want)
+            s_ms, s_enq = host_times_ms(run_sharded, n=3)
+            p_ms, p_enq = host_times_ms(run_plain, n=3)
+        finally:
+            attention.set_flash_impl(None)
+    say(tag, f"(a) build_prefill_step {cfg.name} full width and depth on a "
+        f"(1, 1) mesh, [{PREFILL_B}, {PREFILL_S}]: flash launches "
+        f"{launches['flash']} ({launches['flash_wgmma']} on \"wgmma\", on "
+        f"local shards through local_map); logits {tuple(got.shape)} vs "
+        f"the unsharded prefill max abs err {pre_err:.4g} (tol {LOGIT_TOL} "
+        f"of the range); host clock a call: sharded {s_ms:.2f} ms "
+        f"({s_enq:.2f} to enqueue), plain {p_ms:.2f} ms ({p_enq:.2f} to "
+        f"enqueue)")
+
+    dspec = ShapeSpec("decode", PARALLEL_MAX_LEN, PREFILL_B, "decode")
+    serve, _, (_, c_pl, _) = steps.build_decode_step(cfg, mesh, rules, dspec)
+    cache = init_cache(cfg, PREFILL_B, PARALLEL_MAX_LEN, device=dev)
+    s_cache = steps.place_tree(init_cache(cfg, PREFILL_B, PARALLEL_MAX_LEN,
+                                          device=dev), c_pl, mesh)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PARALLEL_DECODE_STEPS, PREFILL_B))).to(dev)
+    errs = []
+    for i in range(PARALLEL_DECODE_STEPS):
+        with torch.no_grad():
+            lg, s_cache = serve(sharded, s_cache, toks[i], i)
+            ref, cache = decode_step(model, cfg, cache, toks[i], i)
+        errs.append(_logits_close(f"sharded decode step {i}",
+                                  lg.full_tensor(), ref))
+    pos = PARALLEL_DECODE_STEPS
+    ds_ms, ds_enq = host_times_ms(
+        lambda: serve(sharded, s_cache, toks[0], pos), n=3)
+    dp_ms, dp_enq = host_times_ms(
+        lambda: decode_step(model, cfg, cache, toks[0], pos), n=3)
+    say(tag, f"(b) build_decode_step: {PARALLEL_DECODE_STEPS} steps at batch "
+        f"{PREFILL_B} against decode_step, max abs err "
+        f"{max(errs):.4g} (tol {LOGIT_TOL} of the range); host clock a "
+        f"step: sharded {ds_ms:.2f} ms ({ds_enq:.2f} to enqueue), plain "
+        f"{dp_ms:.2f} ms ({dp_enq:.2f} to enqueue)")
+    del sharded, s_cache, cache, model
+    dist.destroy_process_group()      # the dry-run has its own fake group
+
+    arch, shape = PARALLEL_DRYRUN
+    cell = dryrun.run_cell(arch, shape, multi_pod=False, microbatches=1)
+    r = cell["roofline"]
+    say(tag, f"(c) dry-run {arch} {shape} on the fake 16 x 16 mesh (host "
+        f"only, one microbatch): traced in {cell['trace_s']:.1f} s; per "
+        f"device {r['flops_per_device']:.4g} FLOPs, "
+        f"{r['bytes_per_device']:.4g} bytes, {r['collective_bytes']:.4g} "
+        f"collective bytes; compute {r['compute_s']:.4g} s, memory "
+        f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s "
+        f"(H100 constants) -> {r['bottleneck']}; useful ratio "
+        f"{r['useful_ratio']:.4g}; args {cell['memory']['argument_bytes']} "
+        f"B, saved for backward {cell['memory']['temp_bytes']} B a device")
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["flash_wgmma"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2383,6 +2529,7 @@ def main() -> int:
         by_path[arch] = family_phase(dev, arch)
     records["flash_attention"]["launches_by_path"] = by_path
     train_phase(dev)
+    by_path["parallel"] = parallel_phase(dev)
     say("done", f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

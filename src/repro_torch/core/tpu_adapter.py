@@ -138,9 +138,9 @@ def plan_cell(cfg: ModelConfig, spec: ShapeSpec, *, data_par: int,
 def trim_sharding_overrides(cfg: ModelConfig, spec: ShapeSpec,
                             axes: Dict[str, int]) -> Dict[str, object]:
     """Map the planner's winning choice for the *dominant* workload onto
-    logical-rule overrides (the vocabulary of the JAX package's
-    parallel.sharding.make_rules; the port's parallel layer is not
-    written yet).  `axes` maps each mesh axis name to its size."""
+    logical-rule overrides (`parallel.sharding.make_rules(mesh,
+    overrides=...)`, the vocabulary of the JAX package's rules).  `axes`
+    maps each mesh axis name to its size."""
     data = axes.get("data", 1) * axes.get("pod", 1)
     model = axes.get("model", 1)
     plans = plan_cell(cfg, spec, data_par=data, model_par=model)

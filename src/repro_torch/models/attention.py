@@ -21,9 +21,14 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from ..configs.base import ModelConfig
-from .layers import ParamInit, apply_mrope, apply_rope, rms_norm
+from ..parallel.local_shards import attention_on_local_shards
+from .layers import (ParamInit, apply_mrope, apply_rope, fold_tokens,
+                     merge_heads, project_heads, rms_norm, shard, split_dim)
 
 # Hook: a fused flash-attention implementation for the full-sequence path
 # (`repro_torch.kernels.flash_attention.ops.install`).
@@ -56,10 +61,10 @@ def sdpa_blocked(q, k, v, *, causal=True, window=0, k_block: int = None):
     kb = min(k_block or BLOCKED_ATTN_KBLOCK, sk)
     assert sk % kb == 0, (sk, kb)
     group = h // hkv
-    qf = q.reshape(b, sq, hkv, group, d).float()
+    qf = split_dim(q, 2, (hkv, group)).float()
     scale = d ** -0.5
-    kr = k.reshape(b, sk // kb, kb, hkv, d).float()
-    vr = v.reshape(b, sk // kb, kb, hkv, dv).float()
+    kr = split_dim(k, 1, (sk // kb, kb)).float()
+    vr = split_dim(v, 1, (sk // kb, kb)).float()
     qi = torch.arange(sq, device=q.device)
     m = torch.full((b, hkv, group, sq), NEG_INF, device=q.device)
     l = torch.zeros((b, hkv, group, sq), device=q.device)
@@ -108,11 +113,15 @@ def sdpa(q, k, v, *, causal=True, window=0, q_offset=0):
     if _FLASH_IMPL is not None and causal and window == 0 \
             and sq == k.shape[1] and d == dv:
         return _FLASH_IMPL(q, k, v)
+    if isinstance(q, DTensor):
+        # per rank on local shards, differentiable
+        return attention_on_local_shards(sdpa, q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset)
     if k.shape[1] >= BLOCKED_ATTN_THRESHOLD and q_offset == 0 \
             and sq == k.shape[1]:
         return sdpa_blocked(q, k, v, causal=causal, window=window)
     group = h // hkv
-    qg = q.reshape(b, sq, hkv, group, d)
+    qg = split_dim(q, 2, (hkv, group))
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * (d ** -0.5)
     bias = _mask_bias(sq, k.shape[1], causal, window, q_offset,
@@ -133,10 +142,14 @@ class GQA(nn.Module):
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()
         d, hd = cfg.d_model, cfg.d_head
-        self.wq = init.dense(d, cfg.n_heads, hd)
-        self.wk = init.dense(d, cfg.n_kv_heads, hd)
-        self.wv = init.dense(d, cfg.n_kv_heads, hd)
-        self.wo = init.dense(cfg.n_heads, hd, d)
+        self.wq = init.dense(d, cfg.n_heads, hd,
+                             axes=("embed", "heads", "head_dim"))
+        self.wk = init.dense(d, cfg.n_kv_heads, hd,
+                             axes=("embed", "kv_heads", "head_dim"))
+        self.wv = init.dense(d, cfg.n_kv_heads, hd,
+                             axes=("embed", "kv_heads", "head_dim"))
+        self.wo = init.dense(cfg.n_heads, hd, d,
+                             axes=("heads", "head_dim", "embed"))
 
 
 def init_gqa(init: ParamInit, cfg: ModelConfig) -> GQA:
@@ -156,12 +169,14 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
 def gqa_forward(p: GQA, cfg: ModelConfig, x, positions, *, causal=True,
                 window: int = 0):
     """Full-sequence attention.  x: [B,S,D]."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    q = shard(project_heads(x, p.wq),
+              "batch", None, "heads", None)
+    k = project_heads(x, p.wk)
+    v = project_heads(x, p.wv)
     q, k = _rope_qk(cfg, q, k, positions)
     out = sdpa(q, k, v, causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return shard(merge_heads(out, p.wo),
+                 "batch", "seq", "embed")
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -172,8 +187,8 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def gqa_prefill_cache(p: GQA, cfg: ModelConfig, x, positions):
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    k = project_heads(x, p.wk)
+    v = project_heads(x, p.wv)
     if cfg.rope != "none":
         _, k = _rope_qk(cfg, k, k, positions)
     return {"k": k, "v": v}
@@ -183,6 +198,34 @@ def _slot(pos: int, s: int) -> int:
     """Where `lax.dynamic_update_slice` writes a decode step's entry in a
     cache of `s` positions: at `pos`, clamped to the cache."""
     return min(max(int(pos), 0), s - 1)
+
+
+def write_slot(buf, at: int, val) -> None:
+    """`buf[:, at] = val` in place (buf [B, S, ...], val [B, ...]).  A
+    DTensor cache is written on its local shards: `val` is redistributed
+    to the cache's placements (replicated over the mesh dims that shard
+    S), and only the ranks whose S range holds `at` write."""
+    if not isinstance(buf, DTensor):
+        buf[:, at] = val.to(buf.dtype)
+        return
+    pl = []
+    for p in buf.placements:
+        if isinstance(p, Shard) and p.dim == 1:
+            pl.append(Replicate())
+        elif isinstance(p, Shard) and p.dim > 1:
+            pl.append(Shard(p.dim - 1))
+        else:
+            pl.append(p)
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, buf.device_mesh,
+                                 [Replicate()] * buf.device_mesh.ndim,
+                                 run_check=False)
+    local_val = val.to(buf.dtype).redistribute(buf.device_mesh,
+                                              pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        buf.shape, buf.device_mesh, buf.placements)
+    if offset[1] <= at < offset[1] + shape[1]:
+        buf.to_local()[:, at - offset[1]] = local_val
 
 
 def gqa_decode(p: GQA, cfg: ModelConfig, x, cache, pos: int, *,
@@ -195,9 +238,9 @@ def gqa_decode(p: GQA, cfg: ModelConfig, x, cache, pos: int, *,
     clamped to the last slot, so values agree with the reference for every
     `pos` (and for `pos < max_len` the write is exactly at `pos`)."""
     b = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k_new = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v_new = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    q = project_heads(x, p.wq)
+    k_new = project_heads(x, p.wk)
+    v_new = project_heads(x, p.wv)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.rope == "mrope":
         # (pos, pos, pos) for every row: what the reference computes from
@@ -207,22 +250,24 @@ def gqa_decode(p: GQA, cfg: ModelConfig, x, cache, pos: int, *,
     k, v = cache["k"], cache["v"]
     s = k.shape[1]
     at = _slot(pos, s)
-    k[:, at] = k_new[:, 0].to(k.dtype)
-    v[:, at] = v_new[:, 0].to(v.dtype)
+    write_slot(k, at, k_new[:, 0])
+    write_slot(v, at, v_new[:, 0])
+    k = shard(k, "batch", "kv_seq", "kv_heads", None)
+    v = shard(v, "batch", "kv_seq", "kv_heads", None)
     kj = torch.arange(s, device=x.device)
     valid = kj <= pos
     if window:
         valid &= kj > pos - window
     hkv = k.shape[2]
     group = cfg.n_heads // hkv
-    qg = q.reshape(b, 1, hkv, group, cfg.d_head)
+    qg = split_dim(q, 2, (hkv, group))
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * (cfg.d_head ** -0.5)
     logits = logits.masked_fill(~valid, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     out = out.reshape(b, 1, cfg.n_heads, cfg.d_head).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    y = merge_heads(out, p.wo)
     return y, cache
 
 
@@ -240,16 +285,23 @@ class MLA(nn.Module):
         d, nh = cfg.d_model, cfg.n_heads
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
         if cfg.q_lora_rank:
-            self.wq_a = init.dense(d, cfg.q_lora_rank)
-            self.q_a_norm = init.ones(cfg.q_lora_rank)
-            self.wq_b = init.dense(cfg.q_lora_rank, nh, qk)
+            self.wq_a = init.dense(d, cfg.q_lora_rank,
+                                   axes=("embed", "q_lora"))
+            self.q_a_norm = init.ones(cfg.q_lora_rank, axes=("q_lora",))
+            self.wq_b = init.dense(cfg.q_lora_rank, nh, qk,
+                                   axes=("q_lora", "heads", "head_dim"))
         else:
-            self.wq = init.dense(d, nh, qk)
-        self.wkv_a = init.dense(d, cfg.kv_lora_rank + cfg.qk_rope_dim)
-        self.kv_a_norm = init.ones(cfg.kv_lora_rank)
-        self.wk_b = init.dense(cfg.kv_lora_rank, nh, cfg.qk_nope_dim)
-        self.wv_b = init.dense(cfg.kv_lora_rank, nh, cfg.v_head_dim)
-        self.wo = init.dense(nh, cfg.v_head_dim, d)
+            self.wq = init.dense(d, nh, qk,
+                                 axes=("embed", "heads", "head_dim"))
+        self.wkv_a = init.dense(d, cfg.kv_lora_rank + cfg.qk_rope_dim,
+                                axes=("embed", "kv_lora"))
+        self.kv_a_norm = init.ones(cfg.kv_lora_rank, axes=("kv_lora",))
+        self.wk_b = init.dense(cfg.kv_lora_rank, nh, cfg.qk_nope_dim,
+                               axes=("kv_lora", "heads", "head_dim"))
+        self.wv_b = init.dense(cfg.kv_lora_rank, nh, cfg.v_head_dim,
+                               axes=("kv_lora", "heads", "head_dim"))
+        self.wo = init.dense(nh, cfg.v_head_dim, d,
+                             axes=("heads", "head_dim", "embed"))
 
 
 def init_mla(init: ParamInit, cfg: ModelConfig) -> MLA:
@@ -259,15 +311,16 @@ def init_mla(init: ParamInit, cfg: ModelConfig) -> MLA:
 def _mla_q(p: MLA, cfg: ModelConfig, x):
     """-> q [B,S,H, qk_nope+qk_rope]."""
     if cfg.q_lora_rank:
-        ql = rms_norm(x @ p.wq_a, p.q_a_norm, cfg.norm_eps)
-        return torch.einsum("bsr,rhk->bshk", ql, p.wq_b)
-    return torch.einsum("bsd,dhk->bshk", x, p.wq)
+        ql = rms_norm(fold_tokens(x, p.wq_a) @ p.wq_a, p.q_a_norm,
+                      cfg.norm_eps)
+        return project_heads(ql, p.wq_b)
+    return project_heads(x, p.wq)
 
 
 def _mla_kv_a(p: MLA, cfg: ModelConfig, x):
     """-> (normed latent c_kv [B,S,r], rope key [B,S,rope], unrotated)."""
-    c_kv, k_rope = torch.split(x @ p.wkv_a, [cfg.kv_lora_rank,
-                                            cfg.qk_rope_dim], dim=-1)
+    c_kv, k_rope = torch.split(fold_tokens(x, p.wkv_a) @ p.wkv_a,
+                               [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     return rms_norm(c_kv, p.kv_a_norm, cfg.norm_eps), k_rope
 
 
@@ -278,14 +331,14 @@ def mla_forward(p: MLA, cfg: ModelConfig, x, positions, *, causal=True,
     c_kv, k_rope = _mla_kv_a(p, cfg, x)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.wk_b)
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p.wv_b)
+    k_nope = project_heads(c_kv, p.wk_b)
+    v = project_heads(c_kv, p.wv_b)
     k_rope_b = k_rope.expand(*k_rope.shape[:2], cfg.n_heads,
                              cfg.qk_rope_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_b], dim=-1)
     out = sdpa(q_full, k_full, v, causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return merge_heads(out, p.wo)
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -313,8 +366,9 @@ def mla_decode(p: MLA, cfg: ModelConfig, x, cache, pos: int, *,
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     s = c_kv.shape[1]
     at = _slot(pos, s)
-    c_kv[:, at] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, at] = kr_new[:, 0].to(k_rope.dtype)
+    write_slot(c_kv, at, c_new[:, 0])
+    write_slot(k_rope, at, kr_new[:, 0])
+    c_kv = shard(c_kv, "batch", "kv_seq", None)
     valid = torch.arange(s, device=x.device) <= pos
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     rope_logits = torch.einsum("bshk,btk->bhst", q_rope.float(),
@@ -327,14 +381,14 @@ def mla_decode(p: MLA, cfg: ModelConfig, x, cache, pos: int, *,
         o_lat = torch.einsum("bhst,btr->bshr", w, c_kv.float())
         out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p.wv_b)
     else:
-        k_nope = torch.einsum("btr,rhk->bthk", c_kv, p.wk_b)
-        v = torch.einsum("btr,rhk->bthk", c_kv, p.wv_b)
+        k_nope = project_heads(c_kv, p.wk_b)
+        v = project_heads(c_kv, p.wv_b)
         logits = torch.einsum("bshk,bthk->bhst", q_nope.float(),
                               k_nope.float())
         logits = (logits + rope_logits) * scale
         w = torch.softmax(logits.masked_fill(~valid, NEG_INF), dim=-1)
         out = torch.einsum("bhst,bthk->bshk", w, v.float()).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    y = merge_heads(out, p.wo)
     return y, cache
 
 
@@ -347,11 +401,11 @@ def init_cross(init: ParamInit, cfg: ModelConfig) -> GQA:
 
 def cross_forward(p: GQA, cfg: ModelConfig, x, enc_kv):
     """x: [B,Sd,D]; enc_kv: dict k/v [B,Se,H,D] (precomputed)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q = project_heads(x, p.wq)
     out = sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return merge_heads(out, p.wo)
 
 
 def cross_kv(p: GQA, cfg: ModelConfig, enc_out):
-    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, p.wk),
-            "v": torch.einsum("bsd,dhk->bshk", enc_out, p.wv)}
+    return {"k": project_heads(enc_out, p.wk),
+            "v": project_heads(enc_out, p.wv)}

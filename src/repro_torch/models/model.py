@@ -31,8 +31,8 @@ from ..device import as_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (Norm, ParamInit, dt, embedding_lookup, norm,
-                     sinusoidal_positions)
+from .layers import (Norm, ParamInit, dt, embedding_lookup, fold_tokens,
+                     norm, shard, sinusoidal_positions)
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 _aten = torch.ops.aten
@@ -43,9 +43,9 @@ _BMM = (_aten.bmm.default, _aten.baddbmm.default)
 def _saves_dot(batch_dims: bool):
     """A selective-checkpoint policy that saves the outputs of matrix
     products and recomputes everything else.  `x @ w` of a 3-D x and a
-    2-D w lowers to `aten.mm`; every `torch.einsum` lowers to `aten.bmm`,
-    one without batch dims (the attention projections "bsd,dhk->bshk")
-    as a bmm of batch 1.  With `batch_dims` every product is saved (JAX's
+    2-D w lowers to `aten.mm` (the attention projections, `project_heads`
+    and `merge_heads`, among them); every `torch.einsum` lowers to
+    `aten.bmm`, one without batch dims as a bmm of batch 1.  With `batch_dims` every product is saved (JAX's
     `checkpoint_dots`); without, only those of no batch dims: mm, addmm,
     and bmm/baddbmm of batch 1 (`checkpoint_dots_with_no_batch_dims`), so
     the batched attention and expert products are recomputed."""
@@ -121,9 +121,11 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise ValueError(cfg.family)
         self.cfg = cfg
-        self.embed = init.dense(cfg.vocab, cfg.d_model, scale=0.02)
+        self.embed = init.dense(cfg.vocab, cfg.d_model,
+                                axes=("vocab", None), scale=0.02)
         if not cfg.tie_embeddings:
-            self.lm_head = init.dense(cfg.d_model, cfg.vocab, scale=0.02)
+            self.lm_head = init.dense(cfg.d_model, cfg.vocab,
+                                      axes=("embed", "vocab"), scale=0.02)
         self.ln_f = Norm(init, cfg.d_model, cfg.norm)
         if cfg.family in ("ssm", "hybrid"):
             self.layers = nn.ModuleList(MambaBlock(init, cfg)
@@ -156,9 +158,11 @@ def init_model(cfg: ModelConfig, generator: torch.Generator = None, *,
                device="cuda") -> Model:
     """-> the model's parameters, drawn from `generator` (a CPU generator
     seeded with 0 when none is given; one on the card draws a large model
-    faster) and placed on `device` in `cfg.param_dtype`.  The reference
-    returns (params, specs); the specs belong to the parallel slice, which
-    is not ported yet."""
+    faster) and placed on `device` in `cfg.param_dtype` (on "meta":
+    shapes only, nothing drawn).  The reference returns (params, specs);
+    here each parameter carries its logical axes, and
+    `layers.param_specs(model)` gives the name -> axes mapping that
+    `parallel/sharding.py` resolves on a mesh."""
     dev = as_device(device)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(0)
@@ -198,7 +202,8 @@ def _logits(params: Model, cfg: ModelConfig, x, logits_mode: str):
         return x
     if logits_mode == "last":
         x = x[:, -1:]
-    return torch.einsum("bsd,dv->bsv", x, params.head(x.dtype))
+    head = params.head(x.dtype)
+    return torch.einsum("bsd,dv->bsv", fold_tokens(x, head), head)
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -233,6 +238,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
         positions = torch.arange(s, device=dev)[None, :].expand(b, s)
         if cfg.rope == "mrope":
             positions = positions[None].expand(3, b, s)
+    x = shard(x, "batch", "seq", "embed")
     mamba = _remat(_mamba_block_fwd, remat)
     block = _remat(_attn_block_fwd, remat)
     if cfg.family == "ssm":
@@ -254,7 +260,10 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
         for blk in params.layers:
             x = block(blk, cfg, x, positions, moe=cfg.family == "moe",
                       window=cfg.sliding_window)
-    return _logits(params, cfg, x, logits_mode)
+    out = _logits(params, cfg, x, logits_mode)
+    if logits_mode == "hidden":
+        return out
+    return shard(out, "batch", None, "vocab")
 
 
 def _dec_block_fwd(p: Block, cfg: ModelConfig, y, positions, enc_out):
@@ -390,6 +399,7 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
     cdt = dt(cfg.compute_dtype)
     token = torch.as_tensor(token, device=params.embed.device)
     x = embedding_lookup(params.embed, token)[:, None, :].to(cdt)
+    x = shard(x, "batch", None, "embed")
 
     def layer(stacked, i):
         return {k: v[i] for k, v in stacked.items()}
@@ -437,7 +447,8 @@ def _chunk_nll(hc, tc, head):
     """Per-position negative log-likelihood [B, s] of targets `tc` [B, s]
     under the head's logits of hidden states `hc` [B, s, d], the
     log-softmax in float32."""
-    logits = torch.einsum("bsd,dv->bsv", hc, head)
+    logits = shard(torch.einsum("bsd,dv->bsv", fold_tokens(hc, head), head),
+                   "batch", None, "vocab")
     lp = torch.log_softmax(logits.float(), dim=-1)
     return -lp.gather(-1, tc[..., None])[..., 0]
 

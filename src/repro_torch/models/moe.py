@@ -5,8 +5,10 @@ The port of the JAX package's `models/moe.py`.  Dispatch is scatter-based
 cumsum over the one-hot assignment, and tokens beyond capacity are dropped
 (GShard-style).  Shared experts (DeepSeekMoE) run densely on every token.
 The batched expert products are plain `einsum`s, as the reference's are
-(no Pallas kernel there).  The expert-parallel hook (`set_moe_ep_impl`)
-stays `None` until the parallel slice is ported (ROADMAP queue 1, item 9).
+(no Pallas kernel there).  `parallel/sharding.py` installs the
+expert-parallel hook (`set_moe_ep_impl`: local dispatch and an
+all-to-all over `model`); on DTensors the global path routes, dispatches
+and combines on replicated values (`layers.replicated_call`).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import ParamInit, activate
+from .layers import (ParamInit, activate, fold_tokens, replicated_call,
+                     shard)
 
 
 class DenseMLP(nn.Module):
@@ -25,10 +28,10 @@ class DenseMLP(nn.Module):
     def __init__(self, init: ParamInit, cfg: ModelConfig, d_ff: int):
         super().__init__()
         d = cfg.d_model
-        self.w_gate = init.dense(d, d_ff)
+        self.w_gate = init.dense(d, d_ff, axes=("embed", "ff"))
         if cfg.act == "swiglu":
-            self.w_up = init.dense(d, d_ff)
-        self.w_down = init.dense(d_ff, d)
+            self.w_up = init.dense(d, d_ff, axes=("embed", "ff"))
+        self.w_down = init.dense(d_ff, d, axes=("ff", "embed"))
 
 
 def init_dense_mlp(init: ParamInit, cfg: ModelConfig, d_ff: int) -> DenseMLP:
@@ -36,10 +39,11 @@ def init_dense_mlp(init: ParamInit, cfg: ModelConfig, d_ff: int) -> DenseMLP:
 
 
 def dense_mlp(p: DenseMLP, cfg: ModelConfig, x, d_ff=None):
-    g = x @ p.w_gate
+    x = fold_tokens(x, p.w_gate)
+    g = shard(x @ p.w_gate, "batch", "seq", "ff")
     up = x @ p.w_up if cfg.act == "swiglu" else None
     h = activate(g, up, cfg.act)
-    return h @ p.w_down
+    return shard(fold_tokens(h, p.w_down) @ p.w_down, "batch", "seq", "embed")
 
 
 class MoE(nn.Module):
@@ -50,11 +54,14 @@ class MoE(nn.Module):
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()
         d, e, f = cfg.d_model, cfg.n_experts, cfg.d_expert
-        self.router = init.dense(d, e, scale=0.02)
-        self.w_gate = init.dense(e, d, f)
+        self.router = init.dense(d, e, axes=("embed", "experts"),
+                                 scale=0.02)
+        # expert weights shard on the expert dim only, so the grouped
+        # product against [E, C, d] buffers is local
+        self.w_gate = init.dense(e, d, f, axes=("experts", None, None))
         if cfg.act == "swiglu":
-            self.w_up = init.dense(e, d, f)
-        self.w_down = init.dense(e, f, d)
+            self.w_up = init.dense(e, d, f, axes=("experts", None, None))
+        self.w_down = init.dense(e, f, d, axes=("experts", None, None))
         if cfg.n_shared_experts:
             self.shared = DenseMLP(init, cfg,
                                    cfg.d_expert * cfg.n_shared_experts)
@@ -64,8 +71,8 @@ def init_moe(init: ParamInit, cfg: ModelConfig) -> MoE:
     return MoE(init, cfg)
 
 
-# Hook for explicit expert-parallel execution (the parallel slice);
-# None => the single-device path below.
+# Hook for explicit expert-parallel execution (parallel/sharding.py);
+# None, or a None result => the global path below.
 _MOE_EP_IMPL = None
 
 
@@ -135,9 +142,12 @@ def moe_combine(out_buf, route, t: int, k: int, d: int, cap: int):
     return (gathered * w).reshape(t, k, d).sum(dim=1)
 
 
-def expert_ffn(buf, p: MoE, cfg: ModelConfig):
-    """buf: [E, C, d] through each expert's MLP -> [E, C, d]."""
+def expert_ffn(buf, p: MoE, cfg: ModelConfig, *, annotate: bool = False):
+    """buf: [E, C, d] through each expert's MLP -> [E, C, d].  `annotate`
+    marks the gate product's sharding (the global path's)."""
     g = torch.einsum("ecd,edf->ecf", buf, p.w_gate)
+    if annotate:
+        g = shard(g, "experts", "moe_cap", None)
     up = torch.einsum("ecd,edf->ecf", buf, p.w_up) \
         if cfg.act == "swiglu" else None
     h = activate(g, up, cfg.act)
@@ -148,10 +158,18 @@ def _moe_mlp_global(p: MoE, cfg: ModelConfig, x):
     b, s, d = x.shape
     t = b * s
     cap = capacity(cfg, t)
-    buf, route = moe_local_route_dispatch(x.reshape(t, d), p.router, cfg,
-                                          cap)
-    out_buf = expert_ffn(buf, p, cfg)
-    y = moe_combine(out_buf, route, t, cfg.top_k, d, cap).reshape(b, s, d)
+    # routing, dispatch and combine on replicated values when x is a
+    # DTensor (`replicated_call`); the expert products on the shards
+    buf, route = replicated_call(
+        lambda xx, router: moe_local_route_dispatch(xx.reshape(t, d), router,
+                                                    cfg, cap),
+        x, p.router)
+    buf = shard(buf, "experts", "moe_cap", None)
+    out_buf = shard(expert_ffn(buf, p, cfg, annotate=True),
+                    "experts", "moe_cap", None)
+    y = replicated_call(
+        lambda ob, *rt: moe_combine(ob, rt, t, cfg.top_k, d, cap),
+        out_buf, *route).reshape(b, s, d)
     if cfg.n_shared_experts:
         y = y + dense_mlp(p.shared, cfg, x)
     return y

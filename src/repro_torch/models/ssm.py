@@ -25,7 +25,7 @@ from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import (segsum, ssd_chunk_scan,  # noqa: F401
                                     ssd_chunk_scan_streaming, ssd_reference)
-from .layers import ParamInit, rms_norm
+from .layers import ParamInit, fold_tokens, rms_norm, shard, split_dim
 
 
 class Mamba2(nn.Module):
@@ -39,15 +39,18 @@ class Mamba2(nn.Module):
         g, n = cfg.ssm_ngroups, cfg.d_state
         nh = cfg.n_ssm_heads
         conv_dim = di + 2 * g * n
-        self.in_proj = init.dense(d, 2 * di + 2 * g * n + nh)
+        self.in_proj = init.dense(d, 2 * di + 2 * g * n + nh,
+                                  axes=("embed", "ssm_inner"))
         self.conv_w = init.dense(cfg.d_conv, conv_dim,
+                                 axes=(None, "ssm_inner"),
                                  scale=cfg.d_conv ** -0.5)
-        self.conv_b = init.zeros(conv_dim)
-        self.A_log = init.const(torch.log(torch.linspace(1.0, 16.0, nh)))
-        self.dt_bias = init.zeros(nh)
-        self.D = init.ones(nh)
-        self.out_norm = init.ones(di)
-        self.out_proj = init.dense(di, d)
+        self.conv_b = init.zeros(conv_dim, axes=("ssm_inner",))
+        self.A_log = init.const(torch.log(torch.linspace(1.0, 16.0, nh)),
+                                axes=("ssm_heads",))
+        self.dt_bias = init.zeros(nh, axes=("ssm_heads",))
+        self.D = init.ones(nh, axes=("ssm_heads",))
+        self.out_norm = init.ones(di, axes=("ssm_inner",))
+        self.out_proj = init.dense(di, d, axes=("ssm_inner", "embed"))
 
 
 def init_mamba2(init: ParamInit, cfg: ModelConfig) -> Mamba2:
@@ -91,7 +94,8 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x):
     every mode there); otherwise on `ssd_ops.ssd_scan` (the CUDA kernel
     for CUDA tensors, which raises under autograd).  The choice is by
     grad mode only, never by a failure."""
-    zxbcdt = x @ p.in_proj
+    zxbcdt = shard(fold_tokens(x, p.in_proj) @ p.in_proj,
+                   "batch", None, "ssm_inner")
     z, xc, B, C, dtr = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xc, B, C], dim=-1)
     conv_out, _ = _causal_conv(conv_in, p.conv_w, p.conv_b)
@@ -100,19 +104,22 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x):
     b, t, _ = x.shape
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     conv32 = conv_out.float()
-    xh = conv32[..., :di].reshape(b, t, h, pdim)
-    Bh = conv32[..., di:di + g * n].reshape(b, t, g, n)
-    Ch = conv32[..., di + g * n:].reshape(b, t, g, n)
+    xh = shard(split_dim(conv32[..., :di], -1, (h, pdim)),
+               "batch", None, "ssm_heads", None)
+    Bh = split_dim(conv32[..., di:di + g * n], -1, (g, n))
+    Ch = split_dim(conv32[..., di + g * n:], -1, (g, n))
     dt, A = _dt_and_a(p, dtr)
     scan_args = (xh, dt, A, Bh, Ch)
     if torch.is_grad_enabled() and any(v.requires_grad for v in scan_args):
         y = ssd_chunk_scan_streaming(*scan_args, cfg.chunk)
     else:
         y = ssd_ops.ssd_scan(*scan_args, chunk=cfg.chunk)
-    y = y + xh * p.D.float()[None, None, :, None]
+    y = shard(y + xh * p.D.float()[None, None, :, None],
+              "batch", None, "ssm_heads", None)
     y = y.reshape(b, t, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p.out_norm, cfg.norm_eps)
-    return y @ p.out_proj
+    return shard(fold_tokens(y, p.out_proj) @ p.out_proj,
+                 "batch", "seq", "embed")
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, dtype,
@@ -144,10 +151,10 @@ def mamba2_decode(p: Mamba2, cfg: ModelConfig, x, state):
     b = x.shape[0]
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     conv32 = conv_out.float()
-    xh = conv32[..., :di].reshape(b, h, pdim)
-    Bh = conv32[..., di:di + g * n].reshape(b, g, n) \
+    xh = split_dim(conv32[:, 0, :di], -1, (h, pdim))
+    Bh = split_dim(conv32[:, 0, di:di + g * n], -1, (g, n)) \
         .repeat_interleave(h // g, dim=1)                  # [B,H,N]
-    Ch = conv32[..., di + g * n:].reshape(b, g, n) \
+    Ch = split_dim(conv32[:, 0, di + g * n:], -1, (g, n)) \
         .repeat_interleave(h // g, dim=1)
     dt, A = _dt_and_a(p, dtr)
     dt = dt[:, 0]                                          # [B,H]

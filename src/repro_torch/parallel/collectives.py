@@ -51,7 +51,8 @@ def scale_groups(names) -> List[List[str]]:
 
 
 def compress_grads_inplace(grads: Dict[str, torch.Tensor],
-                           err_state: Dict[str, torch.Tensor]):
+                           err_state: Dict[str, torch.Tensor],
+                           amax_reduce=None):
     """Error-feedback int8 compression of a gradient dict.
 
     Returns (decompressed grads, error state): each gradient is
@@ -59,11 +60,15 @@ def compress_grads_inplace(grads: Dict[str, torch.Tensor],
     scale per reference leaf (`scale_groups`: a stack's blocks share the
     scale of their stacked array), and the new residual is written into
     `err_state`'s tensors in place (the same dict comes back; the
-    reference returns new arrays of equal values)."""
+    reference returns new arrays of equal values).  On one rank's shards,
+    `amax_reduce` takes the local max |g| of a group to the global one
+    (an all-reduce MAX over the mesh)."""
     out = {}
     for group in scale_groups(grads):
         g32 = {n: grads[n].float() + err_state[n] for n in group}
         amax = torch.stack([g.abs().max() for g in g32.values()]).max()
+        if amax_reduce is not None:
+            amax = amax_reduce(amax)
         for name, g in g32.items():
             q, scale = quantize_int8(g, amax)
             deq = dequantize_int8(q, scale)

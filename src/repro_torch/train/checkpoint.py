@@ -107,10 +107,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, like_tree: Mapping,
-            host_id: int = 0) -> Dict[str, torch.Tensor]:
+            host_id: int = 0, *, mesh=None, rules=None,
+            specs: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """-> a new tree with `like_tree`'s keys (name -> tensor), each leaf
     on its like leaf's device in its dtype.  Raises KeyError when the
-    checkpoint lacks a leaf and ValueError when a shape differs."""
+    checkpoint lacks a leaf and ValueError when a shape differs.
+
+    With `mesh` (and `rules`), each leaf becomes a DTensor on that mesh:
+    sharded by the logical axes `specs[key]` resolved by `rules`, or
+    replicated when `specs` has no entry for it.  This is the reference's
+    `shardings=`: a checkpoint written from one mesh restores onto
+    another (an elastic re-mesh).  Every rank reads the whole file and
+    keeps its slice."""
     path = os.path.join(ckpt_dir, f"step_{step}", f"shard_{host_id}.npz")
     with np.load(path) as data:
         missing = [k for k in like_tree if k not in data.files]
@@ -123,4 +131,10 @@ def restore(ckpt_dir: str, step: int, like_tree: Mapping,
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(leaf.shape)}")
             out[key] = torch.from_numpy(arr).to(leaf.device, leaf.dtype)
+    if mesh is not None:
+        from ..parallel.sharding import distribute, logical_placements
+        for key, t in out.items():
+            spec = (specs or {}).get(key, (None,) * t.dim())
+            out[key] = distribute(t, mesh, logical_placements(
+                spec, t.shape, rules, mesh))
     return out

@@ -73,11 +73,41 @@ def init_opt_state(cfg: OptConfig, params) -> OptState:
     return OptState(step=0, m=m, v=v, master=master)
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, shares=1.0) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in float32 (a
-    tensor on the gradients' device)."""
-    gs = [g.float() for g in grads]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    tensor on the gradients' device), each gradient's squares divided by
+    its entry of `shares` (how many ranks hold it: one rank's part of a
+    norm over shards)."""
+    norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+    return torch.linalg.vector_norm(norms / shares ** 0.5)
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, g32, ms, vs, base, gnorm, step: int
+                 ) -> float:
+    """One AdamW step on lists of float32 tensors: gradients `g32` (not
+    written), moments `ms`/`vs` and the float32 `base` (the master copy)
+    updated in place, clipped by the global norm `gnorm`; -> lr.  The
+    tensors may be one rank's shards: every operation is elementwise."""
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
+        if cfg.clip_norm > 0 else 1.0
+    g32 = torch._foreach_mul(g32, scale)      # new tensors: grads unwritten
+    lr = lr_at(cfg, step)
+    b1c = 1 - cfg.b1 ** step
+    b2c = 1 - cfg.b2 ** step
+    torch._foreach_mul_(ms, cfg.b1)
+    torch._foreach_add_(ms, g32, alpha=1 - cfg.b1)
+    torch._foreach_mul_(vs, cfg.b2)
+    torch._foreach_addcmul_(vs, g32, g32, value=1 - cfg.b2)
+    den = torch._foreach_div(vs, b2c)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, cfg.eps)
+    upd = torch._foreach_div(ms, b1c)
+    torch._foreach_div_(upd, den)
+    if cfg.weight_decay:
+        torch._foreach_add_(upd, base, alpha=cfg.weight_decay)
+    torch._foreach_add_(base, upd, alpha=-lr)
+    return lr
 
 
 @torch.no_grad()
@@ -93,30 +123,12 @@ def apply_updates(cfg: OptConfig, params, grads: Mapping[str, torch.Tensor],
     ps = [named[n] for n in names]
     g32 = [grads[n].float() for n in names]
     gnorm = global_norm(g32)
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
-        if cfg.clip_norm > 0 else 1.0
-    g32 = torch._foreach_mul(g32, scale)      # new tensors: grads unwritten
-    step = state.step + 1
-    lr = lr_at(cfg, step)
-    b1c = 1 - cfg.b1 ** step
-    b2c = 1 - cfg.b2 ** step
-    ms = [state.m[n] for n in names]
-    vs = [state.v[n] for n in names]
-    torch._foreach_mul_(ms, cfg.b1)
-    torch._foreach_add_(ms, g32, alpha=1 - cfg.b1)
-    torch._foreach_mul_(vs, cfg.b2)
-    torch._foreach_addcmul_(vs, g32, g32, value=1 - cfg.b2)
     # float32 params without a master copy are their own base
     base = [state.master[n] for n in names] if state.master is not None \
         else [p.float() for p in ps]
-    den = torch._foreach_div(vs, b2c)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, cfg.eps)
-    upd = torch._foreach_div(ms, b1c)
-    torch._foreach_div_(upd, den)
-    if cfg.weight_decay:
-        torch._foreach_add_(upd, base, alpha=cfg.weight_decay)
-    torch._foreach_add_(base, upd, alpha=-lr)
+    step = state.step + 1
+    lr = adamw_update(cfg, g32, [state.m[n] for n in names],
+                      [state.v[n] for n in names], base, gnorm, step)
     torch._foreach_copy_(ps, base)
     state.step = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

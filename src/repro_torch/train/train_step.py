@@ -1,6 +1,7 @@
 """Train-step assembly: loss + grad + optimizer, with optional microbatch
 gradient accumulation and int8 gradient compression (error feedback).
-The port of the JAX package's `train/train_step.py`, for one device.
+The port of the JAX package's `train/train_step.py`; `launch/steps.py`
+runs it on DTensors for a mesh.
 
 Gradients of each microbatch come from `torch.autograd.grad` and are added
 into float32 buffers, then scaled by 1/n, as the reference's `lax.scan`
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..configs.base import ModelConfig
 from ..models import lm_loss
@@ -55,10 +57,19 @@ class TrainState:
     @torch.no_grad()
     def load_leaves(self, leaves: Dict[str, torch.Tensor]) -> "TrainState":
         """Copy `leaves` (keys as `leaves()` gives them) into this state's
-        tensors in place; -> self."""
+        tensors in place; -> self.  A DTensor leaf takes its shard of a
+        full tensor, or a DTensor redistributed to its placements."""
         for key, t in self.leaves().items():
             if key == "opt/step":
                 self.opt.step = int(leaves[key])
+            elif isinstance(t, DTensor):
+                src = leaves[key]
+                if not isinstance(src, DTensor):
+                    src = distribute_tensor(src.to(t.to_local().device),
+                                            t.device_mesh, t.placements,
+                                            src_data_rank=None)
+                t.to_local().copy_(src.redistribute(
+                    t.device_mesh, t.placements).to_local())
             else:
                 t.copy_(leaves[key])
         return self
@@ -84,26 +95,35 @@ def _split_microbatches(batch: Dict[str, Any], n: int
 
 
 def loss_and_grads(cfg: ModelConfig, tc: TrainConfig, params: Model,
-                   batch: Dict[str, Any]):
+                   batch, *, place_grad=None):
     """-> (loss, {name: gradient}).  One microbatch: the loss and the
     gradients in the parameters' dtype, as the reference's
     `value_and_grad`.  Several: the mean loss and float32 gradients, each
-    microbatch's added in float32 and the sum scaled by 1/n."""
+    microbatch's added in float32 and the sum scaled by 1/n.  `batch` is
+    one batch, or the list of its microbatches already split (a sharded
+    step splits before placing them).  `place_grad(name, g)` places each
+    microbatch's gradient (the sharded step's reduction to the
+    parameter's placements)."""
     named = dict(params.named_parameters())
 
     def value_and_grad(b):
         loss = lm_loss(params, cfg, b, remat=tc.remat)
-        return loss, torch.autograd.grad(loss, list(named.values()))
+        grads = torch.autograd.grad(loss, list(named.values()))
+        if place_grad is not None:
+            grads = [place_grad(n, g) for n, g in zip(named, grads)]
+        return loss, grads
 
     if tc.microbatches <= 1:
         loss, grads = value_and_grad(batch)
         return loss.detach(), dict(zip(named, grads))
     acc = [torch.zeros_like(p, dtype=torch.float32) for p in named.values()]
-    lsum = torch.zeros((), dtype=torch.float32, device=params.embed.device)
-    for mb in _split_microbatches(batch, tc.microbatches):
+    lsum = None
+    mbs = batch if isinstance(batch, list) \
+        else _split_microbatches(batch, tc.microbatches)
+    for mb in mbs:
         loss, grads = value_and_grad(mb)
         torch._foreach_add_(acc, [g.float() for g in grads])
-        lsum += loss.detach()
+        lsum = loss.detach() if lsum is None else lsum + loss.detach()
     inv = 1.0 / tc.microbatches
     torch._foreach_mul_(acc, inv)
     return lsum * inv, dict(zip(named, acc))

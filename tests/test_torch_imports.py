@@ -71,6 +71,10 @@ SLICE_MODULES = [
     "repro_torch.train.checkpoint", "repro_torch.train.resilience",
     "repro_torch.parallel", "repro_torch.parallel.collectives",
     "repro_torch.launch.train",
+    "repro_torch.parallel.sharding", "repro_torch.parallel.local_shards",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.launch.steps", "repro_torch.launch.roofline",
+    "repro_torch.launch.dryrun", "repro_torch.launch.report",
 ] + [f"repro_torch.configs.{m}" for m in (
     "deepseek_v2_lite_16b", "granite_moe_1b_a400m", "mamba2_2_7b",
     "minicpm3_4b", "nemotron_4_15b", "phi3_mini_3_8b", "qwen2_vl_2b",
