@@ -57,19 +57,24 @@ catches its own failure.
               warm run is all hits with the same report, and the run's
               manifest names this card
   7. flash    both flash-attention kernels against their plain version
-              on the card, each case on the route `choose_route` names
-              (printed, and checked against the route counters): the
-              serving prefill's shape (B=4, S=2048, 9 query on 3 KV heads
-              of 64, bf16), bf16 at D=128 causal and full and a ragged
-              S=1000 at D=64 on the tensor-core kernel; a ragged float32
-              shape (S=1000, D=128) and one small case each at D=80 and
-              D=96 on the SIMT kernel; the prefill shapes of phase 13
-              (12/2 heads of 128, 16/8 and 12/12 heads of 64, bf16).  At
-              the prefill's shape: times as in phase 3, beside the bound, the SIMT kernel on the same
-              values in a padded layout that only it takes (the kernel
-              before the tensor-core one), and one PyTorch call computing
-              the same function (`scaled_dot_product_attention`, timed
-              here only, never called by the port)
+              on the card, each case on the route its `FLASH_CASES` entry
+              names, which `choose_route` must name too (printed, and
+              checked against the route counters): the serving prefill's
+              shape (B=4, S=2048, 9 query on 3 KV heads of 64, bf16),
+              bf16 at D=128 causal and full and a ragged S=1000 at D=64 on
+              the tensor-core kernel; a ragged float32 shape (S=1000,
+              D=128) and one small case each at D=80 and D=96 on the SIMT
+              kernel; the prefill shapes of phase 13 (12/2 heads of 128,
+              16/8 and 12/12 heads of 64, 48/8 heads of 128 on the
+              tensor-core kernel, and phi3-mini-3.8b's 32/32 heads of 96
+              on the SIMT kernel, bf16).  At the serving prefill's shape:
+              times as in phase 3, beside the bound, the SIMT kernel on
+              the same values in a padded layout that only it takes (the
+              kernel before the tensor-core one), and one PyTorch call
+              computing the same function (`scaled_dot_product_attention`,
+              timed here only, never called by the port); at phi3's
+              shape the SIMT kernel's times cold and warm and by the
+              profiler, the plain version's and SDPA's, beside the bound
   8. serve    smollm-135m at full width (bf16, random weights from a seed):
               (a) the prefill `forward(tokens [4, 2048], logits_mode=
               "last")` with the kernel installed must launch the
@@ -133,27 +138,35 @@ catches its own failure.
 
  13. families every other configuration of `configs/registry.py` at full
               width and depth (bf16, random weights from a CUDA generator
-              seeded with 0), one after another: granite-moe-1b-a400m
-              (`moe`), qwen2-vl-2b (`vlm`, M-RoPE), whisper-small
-              (`encdec`), minicpm3-4b (MLA) and deepseek-v2-lite-16b (`moe`
-              + MLA): parameters, init time and peak memory; the prefill
-              [4, 2048] (whisper: frames and tokens both [4, 2048]) with
-              the flash hook installed must launch the tensor-core kernel
-              24, 28, 12, 0 and 0 times and nothing else (`FAMILY_FLASH`),
-              timed as in phase 8; for the three that launch it, the
-              logits within LOGIT_TOL of plain attention's (if the bf16
-              logits miss and the top-k expert sets of the two runs show
-              the routing flip that explains it, as for granite-moe: with
-              the flash run's experts pinned to the plain run's, within
-              LOGIT_TOL, and on a float32 copy, route "simt", within
-              LOGIT_TOL_F32); qwen2-vl also from
-              `embeds` [4, 2048, d] and `positions3` of a patch grid (text,
-              a 32 x 48 image, text), where M-RoPE's three sections
-              differ: 28 launches again, flash within LOGIT_TOL of plain;
+              seeded with 0), one after another, each freed before the
+              next: granite-moe-1b-a400m (`moe`), qwen2-vl-2b (`vlm`,
+              M-RoPE), whisper-small (`encdec`), minicpm3-4b (MLA),
+              deepseek-v2-lite-16b (`moe` + MLA), phi3-mini-3.8b (32/32
+              heads of 96) and nemotron-4-15b (squared ReLU, untied
+              head over a 256,000 vocab): parameters, init time and peak
+              memory (and what was allocated before the init); the
+              prefill [4, 2048] (whisper: frames and tokens both [4,
+              2048]) with the flash hook installed must launch the flash
+              kernel 24, 28, 12, 0, 0, 32 and 32 times, all on the
+              tensor-core route but phi3's (the SIMT route: bf16 at D 96
+              has no tensor-core instantiation; `flash_wgmma` 0), and
+              nothing else (`FAMILY_FLASH`), timed as in phase 8; for the
+              five that launch it, the logits within LOGIT_TOL of plain
+              attention's (a miss is a fault, unless the top-k expert
+              sets of the two runs show the routing flip that explains
+              it, as for granite-moe: then with the flash run's experts
+              pinned to the plain run's, within LOGIT_TOL, and on a
+              float32 copy, route "simt", within LOGIT_TOL_F32); qwen2-vl
+              also from `embeds` [4, 2048, d] and `positions3` of a patch
+              grid (text, a 32 x 48 image, text), where M-RoPE's three
+              sections differ: 28 launches again, flash within LOGIT_TOL
+              of plain;
               `ServeEngine(batch=4, max_len=256)` answers the serve
               phase's load (8 requests, prompts of 8-32 tokens, 16 new
-              each), with tokens/s over the run and over its decode ticks,
-              and one profiled decode step's busy share
+              each; the two MLA engines, the slowest, the first 4 of
+              them: `FAMILY_ENGINE_REQUESTS`), with tokens/s over the run
+              and over its decode ticks, and one profiled decode step's
+              busy share
  14. train    the port's training driver, which launches none of the
               kernels (the reference trains on plain attention and on
               Mamba2's differentiable scan): (a) `launch/train.py::
@@ -250,20 +263,26 @@ SOURCE = "src/repro_torch/kernels/mapspace_eval/csrc/mapspace_eval.cu"
 PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: FP32_FLOP_PER_S}
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/" \
     "flash_attention.cu"
-# (b, s, h, hkv, d, dtype, causal): the serving prefill's shape first;
-# bf16 at D 64/128 takes the tensor-core kernel, the rest the SIMT one
-FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16, True),
-               (2, 1024, 8, 2, 128, torch.bfloat16, True),
-               (2, 1024, 8, 2, 128, torch.bfloat16, False),
-               (1, 1000, 6, 2, 64, torch.bfloat16, True),
-               (1, 1000, 8, 8, 128, torch.float32, True),
-               (2, 300, 4, 2, 80, torch.bfloat16, True),
-               (1, 257, 6, 2, 96, torch.float32, True),
+# (b, s, h, hkv, d, dtype, causal, route): the serving prefill's shape
+# first; bf16 at D 64/128 takes the tensor-core kernel ("wgmma"), the rest
+# the SIMT one ("simt"); `choose_route` must name the route given
+FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16, True, "wgmma"),
+               (2, 1024, 8, 2, 128, torch.bfloat16, True, "wgmma"),
+               (2, 1024, 8, 2, 128, torch.bfloat16, False, "wgmma"),
+               (1, 1000, 6, 2, 64, torch.bfloat16, True, "wgmma"),
+               (1, 1000, 8, 8, 128, torch.float32, True, "simt"),
+               (2, 300, 4, 2, 80, torch.bfloat16, True, "simt"),
+               (1, 257, 6, 2, 96, torch.float32, True, "simt"),
                # the families phase's prefills: qwen2-vl-2b, granite-moe,
-               # whisper-small's decoder
-               (4, 2048, 12, 2, 128, torch.bfloat16, True),
-               (4, 2048, 16, 8, 64, torch.bfloat16, True),
-               (4, 2048, 12, 12, 64, torch.bfloat16, True)]
+               # whisper-small's decoder, phi3-mini-3.8b, nemotron-4-15b
+               (4, 2048, 12, 2, 128, torch.bfloat16, True, "wgmma"),
+               (4, 2048, 16, 8, 64, torch.bfloat16, True, "wgmma"),
+               (4, 2048, 12, 12, 64, torch.bfloat16, True, "wgmma"),
+               (4, 2048, 32, 32, 96, torch.bfloat16, True, "simt"),
+               (4, 2048, 48, 8, 128, torch.bfloat16, True, "wgmma")]
+# phi3-mini-3.8b's prefill layer, the one served shape on the SIMT route
+# (bf16 at D 96): timed as the serving prefill's shape is
+FLASH_SIMT_TIMED = (4, 2048, 32, 32, 96, torch.bfloat16, True, "simt")
 # the kernel each route launches, as the profiler names it
 FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_tc_kernel",
                       "simt": "flash_fwd_kernel"}
@@ -334,14 +353,23 @@ HYBRID_PREFILL_B = 1
 
 # The families phase: every configuration the earlier phases do not
 # serve, at full width and depth (random weights from a CUDA generator
-# seeded with SEED), in the order run.  Flash launches per prefill (all on
-# the tensor-core route): one per causal self-attention of equal q/k and v
-# head dims, as `sdpa` decides; whisper's encoder (non-causal) and
+# seeded with SEED), in the order run, with its flash launches per
+# prefill and their route: one per causal self-attention of equal q/k and
+# v head dims, as `sdpa` decides; whisper's encoder (non-causal) and
 # cross-attention (Sq != Sk) and MLA (192/128 and 96/64 head dims) take
-# the plain path, as in the reference.
-FAMILY_FLASH = {"granite-moe-1b-a400m": 24, "qwen2-vl-2b": 28,
-                "whisper-small": 12, "minicpm3-4b": 0,
-                "deepseek-v2-lite-16b": 0}
+# the plain path, as in the reference.  bf16 at D 64/128 takes the
+# tensor-core route; phi3-mini-3.8b's D 96 the SIMT one.
+FAMILY_FLASH = {"granite-moe-1b-a400m": (24, "wgmma"),
+                "qwen2-vl-2b": (28, "wgmma"),
+                "whisper-small": (12, "wgmma"),
+                "minicpm3-4b": (0, "wgmma"),
+                "deepseek-v2-lite-16b": (0, "wgmma"),
+                "phi3-mini-3.8b": (32, "simt"),
+                "nemotron-4-15b": (32, "wgmma")}
+# The two MLA engines (the slowest: ~3.4 and ~4.6 tokens/s) answer the
+# first 4 of the serve phase's 8 requests, which keeps the smoke near
+# its time budget now that phase 13 serves seven configurations.
+FAMILY_ENGINE_REQUESTS = {"minicpm3-4b": 4, "deepseek-v2-lite-16b": 4}
 # qwen2-vl's prefill from embeddings: text, one image of 32 x 48 merged
 # patches (Qwen2-VL's M-RoPE: t, h, w offset by the text before it), text
 VLM_TEXT_BEFORE, VLM_GRID = 64, (32, 48)
@@ -1208,13 +1236,15 @@ def _padded(t):
 
 
 def flash_phase(dev, cases=FLASH_CASES):
-    """Both kernels against `ref.py` on the card -> the tensor-core
-    kernel's record (times at the first case, the serving prefill's
-    shape)."""
+    """Both kernels against `ref.py` on the card, each case on its route
+    -> the tensor-core kernel's record (times at the first case, the
+    serving prefill's shape; the SIMT kernel's at FLASH_SIMT_TIMED under
+    "simt_timed")."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False     # plain version: fp32
     record = None
-    for b, s, h, hkv, d, dtype, causal in cases:
+    for case in cases:
+        b, s, h, hkv, d, dtype, causal, want_route = case
         q, k, v = _qkv(b, s, h, hkv, d, dtype, dev)
         route = kernel.choose_route(q, k, v)
         run = lambda: ops.flash_attention(q, k, v, causal=causal)
@@ -1223,10 +1253,12 @@ def flash_phase(dev, cases=FLASH_CASES):
         out, want = run(), plain()
         torch.cuda.synchronize()
         tc_launches = kernel.LAUNCHES["flash_wgmma"] - before["flash_wgmma"]
-        if kernel.LAUNCHES["flash"] != before["flash"] + 1 \
+        if route != want_route \
+                or kernel.LAUNCHES["flash"] != before["flash"] + 1 \
                 or tc_launches != (route == "wgmma"):
-            raise RuntimeError(f"flash {tuple(q.shape)}: route {route}, "
-                               f"launches {before} -> {kernel.LAUNCHES}")
+            raise RuntimeError(f"flash {tuple(q.shape)}: route {route} "
+                               f"(want {want_route}), launches {before} -> "
+                               f"{kernel.LAUNCHES}")
         if out.shape != q.shape or out.dtype != dtype \
                 or not torch.isfinite(out).all():
             raise RuntimeError(f"flash {tuple(q.shape)}: bad output")
@@ -1236,66 +1268,117 @@ def flash_phase(dev, cases=FLASH_CASES):
         err = float((out.float() - want.float()).abs().max())
         shape = (f"B={b} S={s} H={h} Hkv={hkv} D={d} {str(dtype)[6:]} "
                  f"{'causal' if causal else 'full'}")
-        if record is not None:
+        if record is None:
+            record = _time_prefill_shape(q, k, v, run, plain, want, case,
+                                         err, shape)
+        elif case == FLASH_SIMT_TIMED:
+            record["simt_timed"] = _time_simt_shape(q, k, v, run, plain,
+                                                    want, case, err, shape)
+        else:
             say("flash", f"{shape}: route {route}, max abs err {err:.3g} "
                 f"(tol {tol:g})")
-            continue
-        if route != "wgmma":
-            raise RuntimeError(f"the prefill's shape took route {route}")
-        # the SIMT kernel on the same values, in a layout only it takes
-        qp, kp, vp = (_padded(t) for t in (q, k, v))
-        if kernel.choose_route(qp, kp, vp) != "simt":
-            raise RuntimeError("the padded layout did not take the SIMT "
-                               "route")
-        simt = lambda: ops.flash_attention(qp, kp, vp, causal=causal)
-        simt_err = float((simt().float() - want.float()).abs().max())
-        # SDPA on the [B,H,S,D] views of the same tensors, GQA included
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-        lib_err = float((library().transpose(1, 2).float()
-                         - want.float()).abs().max())
-        ms = device_times_ms(run, cold=True)
-        warm_ms = device_times_ms(run)
-        b2b_ms = back_to_back_ms(run)
-        simt_ms = device_times_ms(simt, cold=True)
-        plain_ms = device_times_ms(plain, cold=True)
-        plain_warm_ms = device_times_ms(plain)
-        library_ms = device_times_ms(library, cold=True)
-        b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype, causal)
-        # the profiler may record no launch of a kernel in a burst:
-        # profile until it has, and report "not recorded" if it never does
-        (tc_prof, (kern_ms, _, kern_n)), (_, (simt_prof_ms, _, _)) = [
-            profile_kernels(lambda f=f: [f() for _ in range(N_TIMED)],
-                            (FLASH_KERNEL_NAMES[r],))
-            for f, r in ((run, "wgmma"), (simt, "simt"))]
-        cupti = [tc_prof] + [device_busy(lambda f=f: [f() for _ in
-                                                      range(N_TIMED)])
-                             for f in (plain, library)]
-        prof = [c[3] / N_TIMED * 1e3 for c in cupti]
-        say("flash", f"{shape}: route {route}, max abs err {err:.3g} (tol "
-            f"{tol:g}; SIMT kernel's {simt_err:.3g}, SDPA's {lib_err:.3g}); "
-            f"events, cold L2: kernel {ms:.4f} ms, SIMT kernel "
-            f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-            f"{library_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms, plain "
-            f"{plain_warm_ms:.4f} ms; {N_TIMED} kernel calls back to back: "
-            f"{b2b_ms:.4f} ms a call; profiler, warm: kernel {_ms(kern_ms)} "
-            f"ms a launch over {kern_n} launches recorded, SIMT kernel "
-            f"{_ms(simt_prof_ms)} ms; device time per call: kernel "
-            f"{prof[0]:.4f} ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} "
-            f"ms; bound {b_ms:.5f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
-            f"{100 * b_ms / library_ms:.1f}%")
-        record = dict(
-            name="flash_attention", route="cuda", source=FLASH_SOURCE,
-            replaces="src/repro/kernels/flash_attention/kernel.py:27",
-            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            kernel=f"flash_fwd_tc_kernel<{d}>", kernel_route=route,
-            warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
-            back_to_back_ms=b2b_ms, profiler_ms=kern_ms,
-            simt_ms=simt_ms, simt_profiler_ms=simt_prof_ms, shape=shape)
     return record
+
+
+def _sdpa(q, k, v, causal):
+    """SDPA on the [B, H, S, D] views of the same tensors, GQA included:
+    the one PyTorch call computing the kernel's function, timed here only
+    and never called by the port."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+def _time_prefill_shape(q, k, v, run, plain, want, case, err, shape):
+    """The serving prefill's shape, on the tensor-core route: times of
+    the kernel, of the SIMT kernel on the same values in a padded layout
+    (the kernel before the tensor-core one), of the plain version and of
+    SDPA, beside the bound -> the kernels line's flash record."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+    b, s, h, hkv, d, dtype, causal, route = case
+    if route != "wgmma":
+        raise RuntimeError(f"the prefill's shape took route {route}")
+    tol = FLASH_TOL[dtype]
+    # the SIMT kernel on the same values, in a layout only it takes
+    qp, kp, vp = (_padded(t) for t in (q, k, v))
+    if kernel.choose_route(qp, kp, vp) != "simt":
+        raise RuntimeError("the padded layout did not take the SIMT "
+                           "route")
+    simt = lambda: ops.flash_attention(qp, kp, vp, causal=causal)
+    simt_err = float((simt().float() - want.float()).abs().max())
+    library = _sdpa(q, k, v, causal)
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    ms = device_times_ms(run, cold=True)
+    warm_ms = device_times_ms(run)
+    b2b_ms = back_to_back_ms(run)
+    simt_ms = device_times_ms(simt, cold=True)
+    plain_ms = device_times_ms(plain, cold=True)
+    plain_warm_ms = device_times_ms(plain)
+    library_ms = device_times_ms(library, cold=True)
+    b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype, causal)
+    # the profiler may record no launch of a kernel in a burst:
+    # profile until it has, and report "not recorded" if it never does
+    (tc_prof, (kern_ms, _, kern_n)), (_, (simt_prof_ms, _, _)) = [
+        profile_kernels(lambda f=f: [f() for _ in range(N_TIMED)],
+                        (FLASH_KERNEL_NAMES[r],))
+        for f, r in ((run, "wgmma"), (simt, "simt"))]
+    cupti = [tc_prof] + [device_busy(lambda f=f: [f() for _ in
+                                                  range(N_TIMED)])
+                         for f in (plain, library)]
+    prof = [c[3] / N_TIMED * 1e3 for c in cupti]
+    say("flash", f"{shape}: route {route}, max abs err {err:.3g} (tol "
+        f"{tol:g}; SIMT kernel's {simt_err:.3g}, SDPA's {lib_err:.3g}); "
+        f"events, cold L2: kernel {ms:.4f} ms, SIMT kernel "
+        f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms, plain "
+        f"{plain_warm_ms:.4f} ms; {N_TIMED} kernel calls back to back: "
+        f"{b2b_ms:.4f} ms a call; profiler, warm: kernel {_ms(kern_ms)} "
+        f"ms a launch over {kern_n} launches recorded, SIMT kernel "
+        f"{_ms(simt_prof_ms)} ms; device time per call: kernel "
+        f"{prof[0]:.4f} ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} "
+        f"ms; bound {b_ms:.5f} ms ({b_by}), kernel at "
+        f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
+        f"{100 * b_ms / library_ms:.1f}%")
+    return dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        replaces="src/repro/kernels/flash_attention/kernel.py:27",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        kernel=f"flash_fwd_tc_kernel<{d}>", kernel_route=route,
+        warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
+        back_to_back_ms=b2b_ms, profiler_ms=kern_ms,
+        simt_ms=simt_ms, simt_profiler_ms=simt_prof_ms, shape=shape)
+
+
+def _time_simt_shape(q, k, v, run, plain, want, case, err, shape):
+    """phi3-mini-3.8b's prefill layer on the SIMT route (bf16 at D 96, no
+    tensor-core instantiation): the kernel's times cold and warm and by
+    the profiler, the plain version's and SDPA's, beside the bound ->
+    those numbers, for the kernels line."""
+    b, s, h, hkv, d, dtype, causal, route = case
+    library = _sdpa(q, k, v, causal)
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    ms = device_times_ms(run, cold=True)
+    warm_ms = device_times_ms(run)
+    plain_ms = device_times_ms(plain, cold=True)
+    library_ms = device_times_ms(library, cold=True)
+    b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype, causal)
+    _, (kern_ms, _, kern_n) = profile_kernels(
+        lambda: [run() for _ in range(N_TIMED)], (FLASH_KERNEL_NAMES[route],))
+    say("flash", f"{shape}: route {route}, max abs err {err:.3g} (tol "
+        f"{FLASH_TOL[dtype]:g}; SDPA's {lib_err:.3g}); events, cold L2: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms; "
+        f"profiler, warm: kernel {_ms(kern_ms)} ms a launch over {kern_n} "
+        f"launches recorded; bound {b_ms:.5f} ms ({b_by}), kernel at "
+        f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
+        f"{100 * b_ms / library_ms:.1f}%")
+    return dict(shape=shape, kernel=f"flash_fwd_kernel<bf16, {d}>",
+                kernel_route=route, max_abs_err=err, ms=ms,
+                warm_ms=warm_ms, profiler_ms=kern_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
 def _logits_close(what: str, got, want, tol: float = LOGIT_TOL) -> float:
@@ -1850,7 +1933,7 @@ def _max_abs(a, b) -> float:
 def family_phase(dev, arch: str) -> dict:
     """One configuration at full width and depth: init on the card, the
     prefill [PREFILL_B, PREFILL_S] with the flash hook installed (launches
-    by route must be FAMILY_FLASH[arch], all "wgmma", and nothing else),
+    must be FAMILY_FLASH[arch], all on its route, and nothing else),
     timed; flash against plain attention within LOGIT_TOL (where the bf16
     logits miss and the two runs' top-k expert sets show that bf16
     rounding in attention flipped a routing choice: with the flash run's
@@ -1868,6 +1951,7 @@ def family_phase(dev, arch: str) -> dict:
     cfg = get_config(arch)
     tag = "families"
     t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     model = init_model(cfg, torch.Generator(dev).manual_seed(SEED),
                        device=dev)
@@ -1890,14 +1974,16 @@ def family_phase(dev, arch: str) -> dict:
              if cfg.family == "encdec" else f"{cfg.n_layers} layers")
     say(tag, f"{arch} ({cfg.family}): {n_params / 1e9:.3f}B params "
         f"({cfg.param_dtype}), {depth} (full depth), d_model "
-        f"{cfg.d_model}, {attn_desc}, {mlp_desc}, vocab {cfg.vocab}; init "
+        f"{cfg.d_model}, {attn_desc}, {mlp_desc}, vocab {cfg.vocab}"
+        f"{'' if cfg.tie_embeddings else ' (untied head)'}; init "
         f"{init_s:.2f} s, max memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held:.2f} "
+        f"GiB allocated before it)")
 
     rng = np.random.default_rng(SEED)
     batch = _family_batch(cfg, rng, dev)
     prefill = lambda: forward(model, cfg, batch, logits_mode="last")
-    want_flash = FAMILY_FLASH[arch]
+    want_flash, want_route = FAMILY_FLASH[arch]
     with torch.no_grad():
         flash_ops.install()
         try:
@@ -1906,11 +1992,12 @@ def family_phase(dev, arch: str) -> dict:
             torch.cuda.synchronize()
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "flash": want_flash,
-                    "flash_wgmma": want_flash}
+                    "flash_wgmma": (want_flash if want_route == "wgmma"
+                                    else 0)}
             if launches != want:
                 raise RuntimeError(f"{arch} prefill launches {launches}, "
-                                   f"want flash=flash_wgmma={want_flash} "
-                                   f"and no other")
+                                   f"want flash {want_flash} on "
+                                   f"{want_route} and no other")
             if tuple(logits.shape) != (PREFILL_B, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"{arch} prefill: bad logits "
@@ -1927,8 +2014,9 @@ def family_phase(dev, arch: str) -> dict:
         f"logits {tuple(logits.shape)}: flash launches "
         f"{launches['flash']} (wgmma {launches['flash_wgmma']}, simt "
         f"{launches['flash'] - launches['flash_wgmma']}; want "
-        f"{want_flash} on wgmma); {ms:.2f} ms by events, {host_ms:.2f} ms "
-        f"by the host clock ({enqueue_ms:.2f} ms of it to enqueue); "
+        f"{want_flash} on {want_route}); {ms:.2f} ms by events, "
+        f"{host_ms:.2f} ms by the host clock ({enqueue_ms:.2f} ms of it to "
+        f"enqueue); "
         f"profiled: {wall * 1e3:.2f} ms wall, device busy "
         f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) in {n_ops} ops; "
         f"{PREFILL_B * PREFILL_S / ms:.0f} prompt tokens/ms; max memory "
@@ -1945,7 +2033,9 @@ def family_phase(dev, arch: str) -> dict:
         if err <= LOGIT_TOL * scale:
             say(tag, f"{arch} flash against plain attention, bf16: max abs "
                 f"err {err:.4g} (logits up to {scale:.4g}, tol "
-                f"{LOGIT_TOL:g} of it)")
+                f"{LOGIT_TOL:g} of it); max memory allocated through the "
+                f"plain run {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                f" GiB")
         elif not flips:     # no MoE layer, or the same routing: a fault
             _logits_close(f"{arch} flash vs plain", fused, plain)
         else:
@@ -1968,8 +2058,8 @@ def family_phase(dev, arch: str) -> dict:
         launches_v = launch_counts()
         if launches_v != want:
             raise RuntimeError(f"{arch} prefill from embeds launches "
-                               f"{launches_v}, want flash=flash_wgmma="
-                               f"{want_flash} and no other")
+                               f"{launches_v}, want flash {want_flash} on "
+                               f"{want_route} and no other")
         err = _logits_close(f"{arch} flash vs plain from embeds", fused,
                             plain)
         flat = {**vbatch, "positions3": torch.arange(
@@ -1995,7 +2085,9 @@ def family_phase(dev, arch: str) -> dict:
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, model, batch=ENGINE_BATCH, max_len=ENGINE_MAX_LEN,
                       tracer=tr, device=dev)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, ENGINE_REQUESTS)
+    n_req = FAMILY_ENGINE_REQUESTS.get(arch, ENGINE_REQUESTS)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                        ENGINE_REQUESTS)[:n_req]
     for rid, n in enumerate(lens):
         eng.submit(Request(rid=rid, prompt=rng.integers(
             0, cfg.vocab, int(n)).astype(np.int32),
@@ -2003,8 +2095,8 @@ def family_phase(dev, arch: str) -> dict:
     ticks = eng.run_until_drained()
     wall = time.perf_counter() - t0
     out = [len(r.out_tokens) for r in eng.done.values()]
-    if sorted(eng.done) != list(range(ENGINE_REQUESTS)) \
-            or out != [NEW_TOKENS + 1] * ENGINE_REQUESTS:
+    if sorted(eng.done) != list(range(n_req)) \
+            or out != [NEW_TOKENS + 1] * n_req:
         raise RuntimeError(f"{arch} engine finished {sorted(eng.done)} "
                            f"with {out} tokens")
     sp = tr.span_times()
@@ -2012,7 +2104,10 @@ def family_phase(dev, arch: str) -> dict:
     toks = torch.zeros(ENGINE_BATCH, dtype=torch.int32, device=dev)
     wall_1, busy_1, n_ops_1, _, by_1 = device_busy(
         lambda: decode_step(model, cfg, eng.cache, toks, 0))
-    say(tag, f"{arch} (b) engine: {ENGINE_REQUESTS} requests "
+    cut = ("" if n_req == ENGINE_REQUESTS else
+           f" (the first {n_req} of the serve phase's {ENGINE_REQUESTS}: "
+           f"the MLA engines are cut to keep the smoke in its time)")
+    say(tag, f"{arch} (b) engine: {n_req} requests{cut} "
         f"(prompts {sorted(lens.tolist())}), {sum(out)} tokens out "
         f"({decoded:.0f} from decode ticks), {ticks} ticks, {wall:.2f} s "
         f"wall, {sum(out) / wall:.1f} tokens/s; token-by-token prefill "

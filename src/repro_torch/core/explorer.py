@@ -201,7 +201,8 @@ def explore(task: Union[TaskDescription, TaskWorkloads],
             arch_space: Iterable[HardwareDesc],
             goal: str = "edp", cfg: Optional[MapperConfig] = None,
             cache_level: str = "Gbuf", *,
-            backend: str = "auto", device="cuda") -> ExplorationResult:
+            backend: str = "auto", verbose: bool = False,
+            device="cuda") -> ExplorationResult:
     """Paper Algorithm 1 — full design-space exploration.
 
     Thin wrapper over `repro_torch.search.run_search` with the exhaustive
@@ -209,12 +210,13 @@ def explore(task: Union[TaskDescription, TaskWorkloads],
     architecture is evaluated in order, and the best is the first whose
     network goal value is strictly lowest (ties keep the earlier one).
     `backend` is "auto"/"cuda" (kernel for the no-bypass rows) or "torch"
-    (the oracle only); both run on `device`.
+    (the oracle only); both run on `device`.  `verbose` prints one line
+    per architecture as it is evaluated, as the reference's does.
     """
     from ..search.driver import run_search
     report = run_search(task, list(arch_space), goal=goal, cfg=cfg,
                         cache_level=cache_level, strategy="exhaustive",
                         batching="per-arch", backend=backend,
-                        device=device)
+                        verbose=verbose, device=device)
     return ExplorationResult(best=report.best, all_archs=report.all_archs,
                              goal=goal)

@@ -1,17 +1,22 @@
-"""The `moe`, `vlm` and `encdec` families and MLA on the card, at the
-reduced configs of granite-moe-1b-a400m, qwen2-vl-2b, whisper-small,
-minicpm3-4b and deepseek-v2-lite-16b (2 layers, d_model 64) with head dim
-64, a width the flash kernels take:
+"""The `moe`, `vlm` and `encdec` families, MLA and the two dense
+configurations of chip_smoke.py's phase 13 on the card, at the reduced
+configs of granite-moe-1b-a400m, qwen2-vl-2b, whisper-small, minicpm3-4b
+and deepseek-v2-lite-16b (2 layers, d_model 64) with head dim 64, and of
+phi3-mini-3.8b and nemotron-4-15b at their own head dims, 96 and 128
+(widths the flash kernels take):
 
-  * in bf16 with the flash hook installed, the prefill launches the
-    tensor-core kernel once per causal self-attention of equal head dims
-    (2, 2, 2 for whisper's decoder, 0 for MLA) and nothing else;
+  * in bf16 with the flash hook installed, the prefill launches the flash
+    kernel once per causal self-attention of equal head dims (2, 2, 2 for
+    whisper's decoder, 0 for MLA, 2 for phi3 and nemotron) on its route
+    and nothing else: the tensor-core route but at phi3's D 96, where it
+    takes the SIMT route and never the tensor-core one;
   * in float32 (the SIMT route) the flash prefill equals the plain-
     attention prefill at 1e-4 (the kernel's float32 tolerance, 2e-5 a
     layer, through 2 blocks and the head), and teacher-forced decode
     equals the prefill (MoE at a capacity factor of E/k, where no token is
     dropped at either token count; whisper's decode is not its forward's
-    decoder, as in the reference);
+    decoder, as in the reference; nemotron's squared-ReLU MLP and untied
+    head too);
   * qwen2-vl's prefill from `embeds` and `positions3` of a patch grid
     (text, an image, text; M-RoPE's three sections differ) launches the
     kernel once a layer on the route of its dtype, and in float32 equals
@@ -35,10 +40,17 @@ from repro_torch.models import (attention, decode_step, forward, init_cache,
                                 init_model)
 from repro_torch.serve import Request, ServeEngine
 
-# flash launches per prefill at the reduced depth
-FLASH_CALLS = {"granite-moe-1b-a400m": 2, "qwen2-vl-2b": 2,
-               "whisper-small": 2, "minicpm3-4b": 0,
-               "deepseek-v2-lite-16b": 0}
+# flash launches per prefill at the reduced depth, and their route in bf16
+FLASH_CALLS = {"granite-moe-1b-a400m": (2, "wgmma"),
+               "qwen2-vl-2b": (2, "wgmma"), "whisper-small": (2, "wgmma"),
+               "minicpm3-4b": (0, "wgmma"),
+               "deepseek-v2-lite-16b": (0, "wgmma"),
+               "phi3-mini-3.8b": (2, "simt"),
+               "nemotron-4-15b": (2, "wgmma")}
+TENSOR_CORE = [a for a, (_, route) in FLASH_CALLS.items()
+               if route == "wgmma"]
+# the registered head dim where the kernels take it; 64 elsewhere
+HEAD_DIM = {"phi3-mini-3.8b": 96, "nemotron-4-15b": 128}
 TOL = 1e-4
 
 
@@ -55,8 +67,9 @@ def _cfg(arch, dtype="float32", **changes):
     cfg = reduced_config(arch)
     if cfg.rope == "mrope":
         changes["mrope_sections"] = (8, 12, 12)     # 32 pairs at D 64
-    return dataclasses.replace(cfg, head_dim=64, param_dtype=dtype,
-                               compute_dtype=dtype, **changes)
+    return dataclasses.replace(cfg, head_dim=HEAD_DIM.get(arch, 64),
+                               param_dtype=dtype, compute_dtype=dtype,
+                               **changes)
 
 
 def _batch(cfg, dev, b=2, s=64, seed=0):
@@ -99,19 +112,35 @@ def _prefill(model, cfg, batch, flash: bool):
             attention.set_flash_impl(None)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("arch", list(FLASH_CALLS))
-def test_bf16_prefill_launches_the_tensor_core_kernel(card, arch):
+def _bf16_prefill_launches(card, arch):
+    """-> the flash launches of a bf16 prefill with the hook installed,
+    and of them those on the tensor-core route."""
     cfg = _cfg(arch, "bfloat16")
     model = init_model(cfg, torch.Generator(card).manual_seed(0),
                        device=card)
     kernel.reset_launches()
     logits = _prefill(model, cfg, _batch(cfg, card), flash=True)
     torch.cuda.synchronize()
-    n = FLASH_CALLS[arch]
-    assert kernel.LAUNCHES["flash"] == kernel.LAUNCHES["flash_wgmma"] == n
     assert logits.shape == (2, 64, cfg.vocab)
     assert torch.isfinite(logits).all()
+    return kernel.LAUNCHES["flash"], kernel.LAUNCHES["flash_wgmma"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TENSOR_CORE)
+def test_bf16_prefill_launches_the_tensor_core_kernel(card, arch):
+    n = FLASH_CALLS[arch][0]
+    assert _bf16_prefill_launches(card, arch) == (n, n)
+
+
+@pytest.mark.gpu
+def test_bf16_prefill_at_head_dim_96_launches_the_simt_kernel(card):
+    """phi3-mini-3.8b's D 96 has no tensor-core instantiation: in bf16
+    every launch (one a layer) takes the SIMT route."""
+    assert _cfg("phi3-mini-3.8b").d_head == 96
+    n, route = FLASH_CALLS["phi3-mini-3.8b"]
+    assert route == "simt"
+    assert _bf16_prefill_launches(card, "phi3-mini-3.8b") == (n, 0)
 
 
 @pytest.mark.gpu
@@ -123,7 +152,7 @@ def test_float32_flash_prefill_matches_plain(card, arch):
     batch = _batch(cfg, card, seed=1)
     kernel.reset_launches()
     fused = _prefill(model, cfg, batch, flash=True)
-    assert kernel.LAUNCHES["flash"] == FLASH_CALLS[arch]
+    assert kernel.LAUNCHES["flash"] == FLASH_CALLS[arch][0]
     assert kernel.LAUNCHES["flash_wgmma"] == 0
     plain = _prefill(model, cfg, batch, flash=False)
     torch.testing.assert_close(fused, plain, rtol=TOL, atol=TOL)
@@ -133,7 +162,8 @@ def test_float32_flash_prefill_matches_plain(card, arch):
 @pytest.mark.parametrize("arch,absorb", [
     ("granite-moe-1b-a400m", False), ("qwen2-vl-2b", False),
     ("minicpm3-4b", False), ("minicpm3-4b", True),
-    ("deepseek-v2-lite-16b", False), ("deepseek-v2-lite-16b", True)])
+    ("deepseek-v2-lite-16b", False), ("deepseek-v2-lite-16b", True),
+    ("phi3-mini-3.8b", False), ("nemotron-4-15b", False)])
 def test_decode_matches_prefill(card, arch, absorb):
     cfg = _cfg(arch)
     if cfg.n_experts:
@@ -178,7 +208,7 @@ def test_vlm_prefill_from_patch_grid_embeds(card, dtype):
     kernel.reset_launches()
     fused = _prefill(model, cfg, batch, flash=True)
     torch.cuda.synchronize()
-    n = FLASH_CALLS["qwen2-vl-2b"]
+    n = FLASH_CALLS["qwen2-vl-2b"][0]
     assert kernel.LAUNCHES["flash"] == n
     assert kernel.LAUNCHES["flash_wgmma"] == (n if dtype == "bfloat16"
                                               else 0)

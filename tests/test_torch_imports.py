@@ -1,12 +1,13 @@
-"""Guards on the PyTorch/CUDA port (src/repro_torch), chip_smoke.py and
-the port's scripts (scripts/*.py):
+"""Guards on the PyTorch/CUDA port (src/repro_torch), chip_smoke.py, the
+port's scripts (scripts/*.py) and its examples (examples/port/*.py):
 
   * no file imports `jax` or the JAX package `repro` (AST scan);
   * importing the port and every slice module leaves both out of
     `sys.modules` (fresh interpreter);
-  * on a host without a card, entry points called without device="cpu"
-    raise instead of running on the CPU."""
+  * on a host without a card, entry points and the examples called
+    without device="cpu" raise instead of running on the CPU."""
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -95,7 +96,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    + sorted((ROOT / "scripts").glob("*.py")),
+    + sorted((ROOT / "scripts").glob("*.py"))
+    + sorted((ROOT / "examples" / "port").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
@@ -201,3 +203,28 @@ def test_no_silent_cpu_fallback(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
     fn(device="cpu")            # the explicit host run works
+
+
+EXAMPLES = ["quickstart", "explore_training_asic", "dse_modern_lm",
+            "serve_lm", "train_lm"]
+
+
+def test_every_port_example_is_listed():
+    assert sorted(p.stem for p in (ROOT / "examples" / "port").glob("*.py")
+                  ) == sorted(EXAMPLES)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_raises_without_a_card(name):
+    """`python examples/port/<name>.py --device cuda` (the default) raises
+    on a host without a card, before any work, as `launch/serve.py` does."""
+    if torch.cuda.is_available():
+        pytest.skip("host has a CUDA device: the default runs on it")
+    path = ROOT / "examples" / "port" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"port_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for argv in (["--device", "cuda"], []):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv)
