@@ -11,9 +11,10 @@ catches its own failure.
   1. device   the card's name and power limit (nvidia-smi) and capability
   2. build    nvcc builds the three kernel libraries from this checkout;
               ptxas's registers and spills and the dynamic shared memory
-              of the tensor-core flash kernel, and its library's count of
-              HGMMA (wgmma) and UTMALDG (TMA load) instructions in SASS,
-              which must not be 0 where the toolkit has cuobjdump; the
+              of the tensor-core flash kernel at each head dim (64, 80,
+              96, 128), and each instantiation's count of HGMMA (wgmma)
+              and UTMALDG (TMA load) instructions in SASS, which must not
+              be 0 where the toolkit has cuobjdump; the
               same for the SSD route "tc"'s sub-kernels at the models'
               shapes, whose three product kernels must each issue HGMMA
   3. kernels  both mapspace kernels (which read the packed mapspace and
@@ -61,20 +62,19 @@ catches its own failure.
               names, which `choose_route` must name too (printed, and
               checked against the route counters): the serving prefill's
               shape (B=4, S=2048, 9 query on 3 KV heads of 64, bf16),
-              bf16 at D=128 causal and full and a ragged S=1000 at D=64 on
-              the tensor-core kernel; a ragged float32 shape (S=1000,
-              D=128) and one small case each at D=80 and D=96 on the SIMT
-              kernel; the prefill shapes of phase 13 (12/2 heads of 128,
-              16/8 and 12/12 heads of 64, 48/8 heads of 128 on the
-              tensor-core kernel, and phi3-mini-3.8b's 32/32 heads of 96
-              on the SIMT kernel, bf16).  At the serving prefill's shape:
-              times as in phase 3, beside the bound, the SIMT kernel on
-              the same values in a padded layout that only it takes (the
-              kernel before the tensor-core one), and one PyTorch call
-              computing the same function (`scaled_dot_product_attention`,
-              timed here only, never called by the port); at phi3's
-              shape the SIMT kernel's times cold and warm and by the
-              profiler, the plain version's and SDPA's, beside the bound
+              bf16 at D=128 causal and full, a ragged S=1000 at D=64, a
+              ragged S=300 at D=80 and a full ragged S=1000 at D=96 on the
+              tensor-core kernel; a ragged float32 shape (S=1000, D=128)
+              and a small float32 one at D=96 on the SIMT kernel; the
+              prefill shapes of phase 13 (12/2 heads of 128, 16/8 and
+              12/12 heads of 64, phi3-mini-3.8b's 32/32 heads of 96 and
+              48/8 heads of 128, bf16, all on the tensor-core kernel).  At
+              the serving prefill's shape and at phi3's: times as in
+              phase 3, beside the bound, the SIMT kernel on the same
+              values in a padded layout that only it takes (the kernel
+              before the tensor-core one), and one PyTorch call computing
+              the same function (`scaled_dot_product_attention`, timed
+              here only, never called by the port)
   8. serve    smollm-135m at full width (bf16, random weights from a seed):
               (a) the prefill `forward(tokens [4, 2048], logits_mode=
               "last")` with the kernel installed must launch the
@@ -148,8 +148,7 @@ catches its own failure.
               prefill [4, 2048] (whisper: frames and tokens both [4,
               2048]) with the flash hook installed must launch the flash
               kernel 24, 28, 12, 0, 0, 32 and 32 times, all on the
-              tensor-core route but phi3's (the SIMT route: bf16 at D 96
-              has no tensor-core instantiation; `flash_wgmma` 0), and
+              tensor-core route (phi3's D 96 as two padded panels), and
               nothing else (`FAMILY_FLASH`), timed as in phase 8; for the
               five that launch it, the logits within LOGIT_TOL of plain
               attention's (a miss is a fault, unless the top-k expert
@@ -264,25 +263,27 @@ PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: FP32_FLOP_PER_S}
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/" \
     "flash_attention.cu"
 # (b, s, h, hkv, d, dtype, causal, route): the serving prefill's shape
-# first; bf16 at D 64/128 takes the tensor-core kernel ("wgmma"), the rest
-# the SIMT one ("simt"); `choose_route` must name the route given
+# first; bf16 (contiguous, so TMA reads it) takes the tensor-core kernel
+# ("wgmma") at every D, float32 the SIMT one ("simt"); `choose_route` must
+# name the route given
 FLASH_CASES = [(4, 2048, 9, 3, 64, torch.bfloat16, True, "wgmma"),
                (2, 1024, 8, 2, 128, torch.bfloat16, True, "wgmma"),
                (2, 1024, 8, 2, 128, torch.bfloat16, False, "wgmma"),
                (1, 1000, 6, 2, 64, torch.bfloat16, True, "wgmma"),
                (1, 1000, 8, 8, 128, torch.float32, True, "simt"),
-               (2, 300, 4, 2, 80, torch.bfloat16, True, "simt"),
+               (2, 300, 4, 2, 80, torch.bfloat16, True, "wgmma"),
+               (1, 1000, 6, 2, 96, torch.bfloat16, False, "wgmma"),
                (1, 257, 6, 2, 96, torch.float32, True, "simt"),
                # the families phase's prefills: qwen2-vl-2b, granite-moe,
                # whisper-small's decoder, phi3-mini-3.8b, nemotron-4-15b
                (4, 2048, 12, 2, 128, torch.bfloat16, True, "wgmma"),
                (4, 2048, 16, 8, 64, torch.bfloat16, True, "wgmma"),
                (4, 2048, 12, 12, 64, torch.bfloat16, True, "wgmma"),
-               (4, 2048, 32, 32, 96, torch.bfloat16, True, "simt"),
+               (4, 2048, 32, 32, 96, torch.bfloat16, True, "wgmma"),
                (4, 2048, 48, 8, 128, torch.bfloat16, True, "wgmma")]
-# phi3-mini-3.8b's prefill layer, the one served shape on the SIMT route
-# (bf16 at D 96): timed as the serving prefill's shape is
-FLASH_SIMT_TIMED = (4, 2048, 32, 32, 96, torch.bfloat16, True, "simt")
+# phi3-mini-3.8b's prefill layer (bf16 at D 96, two padded panels on the
+# tensor cores): timed as the serving prefill's shape is
+FLASH_PHI3_TIMED = (4, 2048, 32, 32, 96, torch.bfloat16, True, "wgmma")
 # the kernel each route launches, as the profiler names it
 FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_tc_kernel",
                       "simt": "flash_fwd_kernel"}
@@ -354,18 +355,15 @@ HYBRID_PREFILL_B = 1
 # The families phase: every configuration the earlier phases do not
 # serve, at full width and depth (random weights from a CUDA generator
 # seeded with SEED), in the order run, with its flash launches per
-# prefill and their route: one per causal self-attention of equal q/k and
-# v head dims, as `sdpa` decides; whisper's encoder (non-causal) and
-# cross-attention (Sq != Sk) and MLA (192/128 and 96/64 head dims) take
-# the plain path, as in the reference.  bf16 at D 64/128 takes the
-# tensor-core route; phi3-mini-3.8b's D 96 the SIMT one.
-FAMILY_FLASH = {"granite-moe-1b-a400m": (24, "wgmma"),
-                "qwen2-vl-2b": (28, "wgmma"),
-                "whisper-small": (12, "wgmma"),
-                "minicpm3-4b": (0, "wgmma"),
-                "deepseek-v2-lite-16b": (0, "wgmma"),
-                "phi3-mini-3.8b": (32, "simt"),
-                "nemotron-4-15b": (32, "wgmma")}
+# prefill, every one on the tensor-core route (bf16 takes it at every
+# head dim, phi3-mini-3.8b's D 96 too): one per causal self-attention of
+# equal q/k and v head dims, as `sdpa` decides; whisper's encoder
+# (non-causal) and cross-attention (Sq != Sk) and MLA (192/128 and 96/64
+# head dims) take the plain path, as in the reference.
+FAMILY_FLASH = {"granite-moe-1b-a400m": 24, "qwen2-vl-2b": 28,
+                "whisper-small": 12, "minicpm3-4b": 0,
+                "deepseek-v2-lite-16b": 0, "phi3-mini-3.8b": 32,
+                "nemotron-4-15b": 32}
 # The two MLA engines (the slowest: ~3.4 and ~4.6 tokens/s) answer the
 # first 4 of the serve phase's 8 requests, which keeps the smoke near
 # its time budget now that phase 13 serves seven configurations.
@@ -423,33 +421,42 @@ def build_phase() -> None:
 
 def tc_build_report(lib: Path, loaded) -> None:
     """The tensor-core flash kernel's ptxas report per head dim, its dynamic
-    shared memory, and the count of HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in the library's SASS; fails on a spill, or if either
-    count is 0."""
-    entries = {k: v for k, v in _ptxas_entries(lib).items()
-               if FLASH_KERNEL_NAMES["wgmma"] in k}
-    for d in (64, 128):
+    shared memory, and each instantiation's count of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in SASS; fails on a spill, or if
+    either count is 0 in any instantiation."""
+    from repro_torch.kernels.flash_attention.kernel import SUPPORTED_D
+    name = FLASH_KERNEL_NAMES["wgmma"]
+    entries = {k: v for k, v in _ptxas_entries(lib).items() if name in k}
+    for d in SUPPORTED_D:
         lines = [v for k, v in entries.items() if f"ILi{d}E" in k]
         if not lines:
             raise RuntimeError(f"no ptxas report for the D={d} tensor-core "
                                f"kernel")
-        say("build", f"flash_fwd_tc_kernel<{d}>: " + " | ".join(lines[0])
+        say("build", f"{name}<{d}>: " + " | ".join(lines[0])
             + f" | {loaded.flash_attention_tc_smem_bytes(d)} bytes of "
             f"dynamic shared memory")
         spills = [int(n) for ln in lines[0]
                   for n in re.findall(r"(\d+) bytes spill", ln)]
         if not spills or any(spills):
-            raise RuntimeError(f"flash_fwd_tc_kernel<{d}> spills registers "
-                               f"or has no spill report: {lines[0]}")
-    n = _sass_counts(lib, ("HGMMA", "UTMALDG"))
-    if n is None:
+            raise RuntimeError(f"{name}<{d}> spills registers or has no "
+                               f"spill report: {lines[0]}")
+    fns = _sass(lib)
+    if fns is None:
         say("build", "no cuobjdump in the toolkit: SASS not checked")
         return
-    say("build", f"{lib.name} SASS: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
-        f"UTMALDG instructions")
-    if not n["HGMMA"] or not n["UTMALDG"]:
-        raise RuntimeError(f"the tensor-core flash kernel issues no wgmma "
-                           f"or no TMA load: {n}")
+    counts = {}
+    for d in SUPPORTED_D:
+        bodies = [body for f, body in fns.items()
+                  if name in f and f"ILi{d}E" in f]
+        counts[d] = {op: sum(_count(body, op) for body in bodies)
+                     for op in ("HGMMA", "UTMALDG")}
+    say("build", f"{lib.name} SASS, {name} HGMMA / UTMALDG instructions "
+        f"by head dim: " + ", ".join(f"D={d} {n['HGMMA']} / "
+                                     f"{n['UTMALDG']}"
+                                     for d, n in counts.items()))
+    if not all(n["HGMMA"] and n["UTMALDG"] for n in counts.values()):
+        raise RuntimeError(f"a tensor-core flash instantiation issues no "
+                           f"wgmma or no TMA load: {counts}")
 
 
 def _ptxas_entries(lib: Path) -> dict:
@@ -481,14 +488,6 @@ def _sass(lib: Path):
 
 def _count(text: str, op: str) -> int:
     return len(re.findall(rf"\b{op}\b", text))
-
-
-def _sass_counts(lib: Path, ops) -> dict:
-    """-> {op: instructions of that name in the library's SASS}, or None
-    where the toolkit has no cuobjdump."""
-    fns = _sass(lib)
-    return None if fns is None else {
-        op: sum(_count(body, op) for body in fns.values()) for op in ops}
 
 
 def ssd_build_report(lib: Path, loaded) -> None:
@@ -1238,8 +1237,8 @@ def _padded(t):
 def flash_phase(dev, cases=FLASH_CASES):
     """Both kernels against `ref.py` on the card, each case on its route
     -> the tensor-core kernel's record (times at the first case, the
-    serving prefill's shape; the SIMT kernel's at FLASH_SIMT_TIMED under
-    "simt_timed")."""
+    serving prefill's shape; at FLASH_PHI3_TIMED, phi3-mini-3.8b's layer,
+    under "phi3_timed")."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False     # plain version: fp32
     record = None
@@ -1269,11 +1268,14 @@ def flash_phase(dev, cases=FLASH_CASES):
         shape = (f"B={b} S={s} H={h} Hkv={hkv} D={d} {str(dtype)[6:]} "
                  f"{'causal' if causal else 'full'}")
         if record is None:
-            record = _time_prefill_shape(q, k, v, run, plain, want, case,
-                                         err, shape)
-        elif case == FLASH_SIMT_TIMED:
-            record["simt_timed"] = _time_simt_shape(q, k, v, run, plain,
-                                                    want, case, err, shape)
+            record = dict(
+                name="flash_attention", route="cuda", source=FLASH_SOURCE,
+                replaces="src/repro/kernels/flash_attention/kernel.py:27",
+                launches=None, **_time_prefill_shape(
+                    q, k, v, run, plain, want, case, err, shape))
+        elif case == FLASH_PHI3_TIMED:
+            record["phi3_timed"] = _time_prefill_shape(
+                q, k, v, run, plain, want, case, err, shape)
         else:
             say("flash", f"{shape}: route {route}, max abs err {err:.3g} "
                 f"(tol {tol:g})")
@@ -1290,10 +1292,11 @@ def _sdpa(q, k, v, causal):
 
 
 def _time_prefill_shape(q, k, v, run, plain, want, case, err, shape):
-    """The serving prefill's shape, on the tensor-core route: times of
-    the kernel, of the SIMT kernel on the same values in a padded layout
-    (the kernel before the tensor-core one), of the plain version and of
-    SDPA, beside the bound -> the kernels line's flash record."""
+    """A prefill's shape on the tensor-core route: the SIMT kernel on the
+    same values in a padded layout (the kernel before the tensor-core one)
+    held to the plain version within FLASH_TOL; times of the kernel, of
+    the SIMT kernel, of the plain version and of SDPA, beside the bound
+    -> those numbers, for the kernels line."""
     from repro_torch.kernels.flash_attention import kernel, ops
     b, s, h, hkv, d, dtype, causal, route = case
     if route != "wgmma":
@@ -1305,7 +1308,9 @@ def _time_prefill_shape(q, k, v, run, plain, want, case, err, shape):
         raise RuntimeError("the padded layout did not take the SIMT "
                            "route")
     simt = lambda: ops.flash_attention(qp, kp, vp, causal=causal)
-    simt_err = float((simt().float() - want.float()).abs().max())
+    simt_out = simt().float()
+    torch.testing.assert_close(simt_out, want.float(), rtol=tol, atol=tol)
+    simt_err = float((simt_out - want.float()).abs().max())
     library = _sdpa(q, k, v, causal)
     lib_err = float((library().transpose(1, 2).float()
                      - want.float()).abs().max())
@@ -1339,46 +1344,16 @@ def _time_prefill_shape(q, k, v, run, plain, want, case, err, shape):
         f"{prof[0]:.4f} ms, plain {prof[1]:.4f} ms, SDPA {prof[2]:.4f} "
         f"ms; bound {b_ms:.5f} ms ({b_by}), kernel at "
         f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
-        f"{100 * b_ms / library_ms:.1f}%")
+        f"{100 * b_ms / library_ms:.1f}%; kernel {simt_ms / ms:.1f}x "
+        f"faster than the SIMT kernel, {ms / library_ms:.2f}x SDPA's time")
     return dict(
-        name="flash_attention", route="cuda", source=FLASH_SOURCE,
-        replaces="src/repro/kernels/flash_attention/kernel.py:27",
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
         kernel=f"flash_fwd_tc_kernel<{d}>", kernel_route=route,
         warm_ms=warm_ms, plain_warm_ms=plain_warm_ms,
         back_to_back_ms=b2b_ms, profiler_ms=kern_ms,
-        simt_ms=simt_ms, simt_profiler_ms=simt_prof_ms, shape=shape)
-
-
-def _time_simt_shape(q, k, v, run, plain, want, case, err, shape):
-    """phi3-mini-3.8b's prefill layer on the SIMT route (bf16 at D 96, no
-    tensor-core instantiation): the kernel's times cold and warm and by
-    the profiler, the plain version's and SDPA's, beside the bound ->
-    those numbers, for the kernels line."""
-    b, s, h, hkv, d, dtype, causal, route = case
-    library = _sdpa(q, k, v, causal)
-    lib_err = float((library().transpose(1, 2).float()
-                     - want.float()).abs().max())
-    ms = device_times_ms(run, cold=True)
-    warm_ms = device_times_ms(run)
-    plain_ms = device_times_ms(plain, cold=True)
-    library_ms = device_times_ms(library, cold=True)
-    b_ms, b_by = flash_bound_ms(b, s, h, hkv, d, dtype, causal)
-    _, (kern_ms, _, kern_n) = profile_kernels(
-        lambda: [run() for _ in range(N_TIMED)], (FLASH_KERNEL_NAMES[route],))
-    say("flash", f"{shape}: route {route}, max abs err {err:.3g} (tol "
-        f"{FLASH_TOL[dtype]:g}; SDPA's {lib_err:.3g}); events, cold L2: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms; warm L2: kernel {warm_ms:.4f} ms; "
-        f"profiler, warm: kernel {_ms(kern_ms)} ms a launch over {kern_n} "
-        f"launches recorded; bound {b_ms:.5f} ms ({b_by}), kernel at "
-        f"{100 * b_ms / ms:.1f}% of it (cold), SDPA at "
-        f"{100 * b_ms / library_ms:.1f}%")
-    return dict(shape=shape, kernel=f"flash_fwd_kernel<bf16, {d}>",
-                kernel_route=route, max_abs_err=err, ms=ms,
-                warm_ms=warm_ms, profiler_ms=kern_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        simt_ms=simt_ms, simt_profiler_ms=simt_prof_ms,
+        simt_max_abs_err=simt_err, shape=shape)
 
 
 def _logits_close(what: str, got, want, tol: float = LOGIT_TOL) -> float:
@@ -1933,7 +1908,8 @@ def _max_abs(a, b) -> float:
 def family_phase(dev, arch: str) -> dict:
     """One configuration at full width and depth: init on the card, the
     prefill [PREFILL_B, PREFILL_S] with the flash hook installed (launches
-    must be FAMILY_FLASH[arch], all on its route, and nothing else),
+    must be FAMILY_FLASH[arch], all on the tensor-core route, and nothing
+    else),
     timed; flash against plain attention within LOGIT_TOL (where the bf16
     logits miss and the two runs' top-k expert sets show that bf16
     rounding in attention flipped a routing choice: with the flash run's
@@ -1983,7 +1959,7 @@ def family_phase(dev, arch: str) -> dict:
     rng = np.random.default_rng(SEED)
     batch = _family_batch(cfg, rng, dev)
     prefill = lambda: forward(model, cfg, batch, logits_mode="last")
-    want_flash, want_route = FAMILY_FLASH[arch]
+    want_flash = FAMILY_FLASH[arch]
     with torch.no_grad():
         flash_ops.install()
         try:
@@ -1992,12 +1968,11 @@ def family_phase(dev, arch: str) -> dict:
             torch.cuda.synchronize()
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "flash": want_flash,
-                    "flash_wgmma": (want_flash if want_route == "wgmma"
-                                    else 0)}
+                    "flash_wgmma": want_flash}
             if launches != want:
                 raise RuntimeError(f"{arch} prefill launches {launches}, "
                                    f"want flash {want_flash} on "
-                                   f"{want_route} and no other")
+                                   f"wgmma and no other")
             if tuple(logits.shape) != (PREFILL_B, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"{arch} prefill: bad logits "
@@ -2014,7 +1989,7 @@ def family_phase(dev, arch: str) -> dict:
         f"logits {tuple(logits.shape)}: flash launches "
         f"{launches['flash']} (wgmma {launches['flash_wgmma']}, simt "
         f"{launches['flash'] - launches['flash_wgmma']}; want "
-        f"{want_flash} on {want_route}); {ms:.2f} ms by events, "
+        f"{want_flash} on wgmma); {ms:.2f} ms by events, "
         f"{host_ms:.2f} ms by the host clock ({enqueue_ms:.2f} ms of it to "
         f"enqueue); "
         f"profiled: {wall * 1e3:.2f} ms wall, device busy "
@@ -2059,7 +2034,7 @@ def family_phase(dev, arch: str) -> dict:
         if launches_v != want:
             raise RuntimeError(f"{arch} prefill from embeds launches "
                                f"{launches_v}, want flash {want_flash} on "
-                               f"{want_route} and no other")
+                               f"wgmma and no other")
         err = _logits_close(f"{arch} flash vs plain from embeds", fused,
                             plain)
         flat = {**vbatch, "positions3": torch.arange(
@@ -2589,7 +2564,7 @@ def main() -> int:
     from repro_torch.core import alexnet_cifar, analyze, generate_arch_space
     from repro_torch.core.explorer import _workload_key
     t_start = time.perf_counter()
-    device_phase()
+    smi = device_phase()
     device_busy(lambda: torch.ones(1, device="cuda").sum())  # CUPTI warm-up
     build_phase()
     dev = torch.device("cuda", 0)
@@ -2625,7 +2600,7 @@ def main() -> int:
     records["flash_attention"]["launches_by_path"] = by_path
     train_phase(dev)
     by_path["parallel"] = parallel_phase(dev)
-    say("done", f"{time.perf_counter() - t_start:.1f} s total")
+    say("done", f"{time.perf_counter() - t_start:.1f} s total on {smi}")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

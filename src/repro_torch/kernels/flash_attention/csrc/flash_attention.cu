@@ -14,9 +14,10 @@
 // ~25 MB, about 20 us at the tensor cores' bf16 peak against 7.5 us of
 // HBM traffic.  This kernel (`flash_fwd_kernel`, the SIMT route) computes
 // on the CUDA cores in fp32 (67 TFLOP/s peak), so its own ceiling is ~0.3 ms
-// at that shape.  It serves float32 inputs (every D) and bf16 at D = 80 and
-// 96; bf16 at D = 64 and 128 goes to `flash_fwd_tc_kernel` further down,
-// which runs both products on the tensor cores.
+// at that shape.  It serves float32 inputs (every D) and bf16 in layouts
+// that TMA cannot read (a pointer or stride off 16 bytes); every other bf16
+// input goes to `flash_fwd_tc_kernel` further down, which runs both
+// products on the tensor cores.
 //
 // What the design does about it.
 //   * One block of 256 threads per (q head, batch row, q tile of 64 rows).
@@ -237,7 +238,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // ===========================================================================
-// Tensor-core route: `flash_fwd_tc_kernel<D>`, bf16 at D = 64 and 128.
+// Tensor-core route: `flash_fwd_tc_kernel<D>`, bf16 at D = 64, 80, 96, 128.
 //
 // Replaces the same Pallas TPU kernel, `_flash_kernel`
 // (src/repro/kernels/flash_attention/kernel.py:27), for bf16 inputs: causal
@@ -270,6 +271,15 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 //     h / group, with no copy.  A box is one 64-column (128-byte) panel, so
 //     D = 128 is two panels.  TMA's zero fill past S replaces the masked
 //     loads of a ragged last tile.
+//   * D = 80 and 96 are padded to two whole panels (`Layout::DP` = 128):
+//     the maps keep the real D as their innermost extent, so the second
+//     box reads columns D..127 as zeros, and every 128-byte swizzle and
+//     descriptor stays as at D = 128.  Q K^T runs D / 16 k steps and never
+//     touches the zero columns; P V runs at N = 128 (N = 96 is 1.5 atoms of
+//     the MN-major 128-byte swizzle, which wgmma does not take), 33% more
+//     products at D = 96 and 60% at D = 80, and the epilogue stores the
+//     first D columns only.  TMA counts a box's zero fill into its bytes,
+//     so the barriers expect the padded size.
 //   * Softmax in the accumulator's registers: log2(e) folded into the scale
 //     (one FFMA and one exp2 an element), row max across the four threads
 //     of a row (quad shuffles), the row sum kept per thread and reduced
@@ -300,9 +310,10 @@ constexpr float NEG_BIG = -1e30f;   // initial running max, finite
 
 template <int D>
 struct Layout {
-  static constexpr int PANELS = D / PANEL;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;   // K or V, one stage
+  static constexpr int PANELS = (D + PANEL - 1) / PANEL;
+  static constexpr int DP = PANELS * PANEL;      // D padded to whole panels
+  static constexpr int Q_BYTES = BQ * DP * 2;    // a box's zero fill counts
+  static constexpr int KV_BYTES = BK * DP * 2;   // K or V, one stage
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = Q_OFF + Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
@@ -446,8 +457,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_v,
                     __nv_bfloat16* __restrict__ o, int S, int H, int group,
                     float scale_log2, int causal) {
-  static_assert(D == 64 || D == 128, "the tensor-core route takes D 64, 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "the tensor-core route takes D 64, 80, 96, 128");
   using L = Layout<D>;
+  constexpr int DP = L::DP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::Q_OFF, k_s = base + L::K_OFF,
@@ -503,9 +516,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row0 = row_lo + warp * 16 + lane / 4;   // rows row0, row0 + 8
     const int colq = 2 * (lane % 4);              // columns colq, colq + 1
                                                   // of every 8-wide block
-    float acc[D / 2];
+    float acc[DP / 2];   // columns D..DP-1 multiply V's zero fill: stay 0
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
 
     mbar_wait(q_bar, 0);
@@ -513,7 +526,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = kt % STAGES, k0 = kt * BK;
       mbar_wait(bars + 8 * s, (kt / STAGES) & 1);
 
-      // S = Q K^T: 64 x 128 fp32, D / 16 k steps
+      // S = Q K^T: 64 x 128 fp32, D / 16 k steps (none on the zero fill)
       float sc[BK / 2];
       wg_fence();
 #pragma unroll
@@ -569,6 +582,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      // (acc[D / 2..] hold the zero columns: 0 * alpha is 0)
 
       // P as bf16 A fragments: k step t covers S's 8-wide blocks 2t, 2t + 1
       uint32_t pa[BK / 16][4];
@@ -578,7 +592,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int i = 0; i < 4; ++i)
           pa[t][i] = pack_bf16(sc[8 * t + 2 * i], sc[8 * t + 2 * i + 1]);
 
-      // O += P V: V's rows are keys, D contiguous (MN-major), 16 keys a step
+      // O += P V: V's rows are keys, D contiguous (MN-major), 16 keys a
+      // step, N = DP
       pin(acc);
       wg_fence();
 #pragma unroll
@@ -592,7 +607,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(bars + 8 * (STAGES + s));
     }
 
-    // epilogue: the row sums across the quad, divide, store rows < S
+    // epilogue: the row sums across the quad, divide, store rows < S and
+    // their first D columns (o's row stride is the real D)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -640,8 +656,9 @@ EncodeTiled encode_tiled() {
 
 // [B, S, heads, D] bf16 with strides sb, ss, sh (elements) and unit stride
 // in D -> a 4-D map {D, heads, S, B}, box one 64-column panel x 128 rows,
-// 128-byte swizzle, zeros past the edges.  A dimension of extent 1 is only
-// read at coordinate 0, so its stride is replaced by the packed one.
+// 128-byte swizzle, zeros past the edges (so at D = 80 and 96 the second
+// panel's box reads columns D..127 as zeros).  A dimension of extent 1 is
+// only read at coordinate 0, so its stride is replaced by the packed one.
 CUresult encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
                     int B, int S, int heads, int D, long long sb,
                     long long ss, long long sh) {
@@ -694,7 +711,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     if (dev < 64) opted_in[dev] = true;
   }
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  const float scale_log2 =
+  const float scale_log2 =   // the real D, not the padded width
       1.4426950408889634f / sqrtf(static_cast<float>(D));
   flash_fwd_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, H / Hkv, scale_log2,
@@ -704,18 +721,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace tc
 
-// Dynamic shared memory of the tensor-core kernel at head dim D (64, 128).
+// Dynamic shared memory of the tensor-core kernel at head dim D (64, 80,
+// 96, 128; 0 for any other).
 extern "C" int flash_attention_tc_smem_bytes(int D) {
-  return D == 64 ? tc::Layout<64>::BYTES
-                 : D == 128 ? tc::Layout<128>::BYTES : 0;
+  switch (D) {
+    case 64: return tc::Layout<64>::BYTES;
+    case 80: return tc::Layout<80>::BYTES;
+    case 96: return tc::Layout<96>::BYTES;
+    case 128: return tc::Layout<128>::BYTES;
+    default: return 0;
+  }
 }
 
 // q [B,S,H,D], k/v [B,S,Hkv,D] with unit stride in D and the given strides
 // (in elements) for B, S and the head; o contiguous [B,S,H,D].
 // dtype: 0 float32, 1 bfloat16.  route: 0 the SIMT kernel (any dtype, D
-// 64/80/96/128), 1 the tensor-core kernel (bfloat16, D 64/128, pointers and
-// strides 16-byte aligned); the caller chooses, and a route that does not
-// take the input is an error, never a fallback.
+// 64/80/96/128), 1 the tensor-core kernel (bfloat16, D 64/80/96/128,
+// pointers and strides 16-byte aligned); the caller chooses, and a route
+// that does not take the input is an error, never a fallback.
 // -> cudaGetLastError() after the launch, or minus a CUresult (tensor map).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
@@ -733,10 +756,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
-    if (D == 64) return tc::launch<64>(q, k, v, o, B, S, H, Hkv, causal, st, s);
-    if (D == 128)
-      return tc::launch<128>(q, k, v, o, B, S, H, Hkv, causal, st, s);
-    return cudaErrorInvalidValue;
+    switch (D) {
+      case 64: return tc::launch<64>(q, k, v, o, B, S, H, Hkv, causal, st, s);
+      case 80: return tc::launch<80>(q, k, v, o, B, S, H, Hkv, causal, st, s);
+      case 96: return tc::launch<96>(q, k, v, o, B, S, H, Hkv, causal, st, s);
+      case 128:
+        return tc::launch<128>(q, k, v, o, B, S, H, Hkv, causal, st, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
   if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)

@@ -4,14 +4,16 @@
 `_flash_kernel`, both on the model's [B, S, H, D] layout with the KV head
 taken as `q_head // group`, so no K/V copy is made:
 
-* `flash_fwd_tc_kernel<D>` (route "wgmma"): bf16 at D 64 and 128, both
-  products on the tensor cores (`wgmma`), K/V tiles through TMA into a
-  two-stage ring, a producer warpgroup and two consumer warpgroups;
-* `flash_fwd_kernel<T, D>` (route "simt"): float32 at every D and bf16 at
-  D 80 and 96, products in fp32 on the CUDA cores.
+* `flash_fwd_tc_kernel<D>` (route "wgmma"): bf16 at every D whose
+  pointers and strides TMA can read, both products on the tensor cores
+  (`wgmma`), K/V tiles through TMA into a two-stage ring, a producer
+  warpgroup and two consumer warpgroups; D 80 and 96 are read as two
+  128-byte panels, the second padded with TMA's zero fill;
+* `flash_fwd_kernel<T, D>` (route "simt"): float32 at every D and bf16 in
+  a layout TMA cannot read, products in fp32 on the CUDA cores.
 
-`choose_route` picks one from the inputs' type, head dim and alignment
-before any launch; nothing falls back from one to the other.  The source is
+`choose_route` picks one from the inputs' type and alignment before any
+launch; nothing falls back from one to the other.  The source is
 compiled by `nvcc` at first use (`kernels/build.py`) and loaded with
 `ctypes`; `flash_attention_fwd` launches on PyTorch's current stream and
 counts its launches: `LAUNCHES["flash"]` every launch,
@@ -31,7 +33,6 @@ SUPPORTED_D = (64, 80, 96, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the routes, by the code the C entry takes
 ROUTES = {"simt": 0, "wgmma": 1}
-WGMMA_D = (64, 128)        # whole 128-byte swizzle panels of bf16
 TMA_ALIGN = 16             # bytes: TMA's base address and stride unit
 
 #: kernel launches since import (or the last `reset_launches`)
@@ -88,11 +89,12 @@ def check_inputs(q, k, v) -> None:
 
 
 def choose_route(q, k, v) -> str:
-    """The kernel that takes these inputs: "wgmma" for bfloat16 at D 64 or
-    128 whose base pointers and strides (of every dimension longer than 1)
-    are positive multiples of 16 bytes, as TMA reads them; "simt" for
-    everything else `check_inputs` accepts.  Pure Python, no launch."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_D:
+    """The kernel that takes inputs `check_inputs` accepts: "wgmma" for
+    bfloat16 (at every D of `SUPPORTED_D`) whose base pointers and strides
+    (of every dimension longer than 1) are positive multiples of 16 bytes,
+    as TMA reads them; "simt" for everything else.  Pure Python, no
+    launch."""
+    if q.dtype != torch.bfloat16:
         return "simt"
     for t in (q, k, v):
         if t.data_ptr() % TMA_ALIGN:

@@ -7,9 +7,9 @@ phi3-mini-3.8b and nemotron-4-15b at their own head dims, 96 and 128
 
   * in bf16 with the flash hook installed, the prefill launches the flash
     kernel once per causal self-attention of equal head dims (2, 2, 2 for
-    whisper's decoder, 0 for MLA, 2 for phi3 and nemotron) on its route
-    and nothing else: the tensor-core route but at phi3's D 96, where it
-    takes the SIMT route and never the tensor-core one;
+    whisper's decoder, 0 for MLA, 2 for phi3 and nemotron), all on the
+    tensor-core route (phi3's D 96 too, padded to two panels), and nothing
+    else;
   * in float32 (the SIMT route) the flash prefill equals the plain-
     attention prefill at 1e-4 (the kernel's float32 tolerance, 2e-5 a
     layer, through 2 blocks and the head), and teacher-forced decode
@@ -40,15 +40,12 @@ from repro_torch.models import (attention, decode_step, forward, init_cache,
                                 init_model)
 from repro_torch.serve import Request, ServeEngine
 
-# flash launches per prefill at the reduced depth, and their route in bf16
-FLASH_CALLS = {"granite-moe-1b-a400m": (2, "wgmma"),
-               "qwen2-vl-2b": (2, "wgmma"), "whisper-small": (2, "wgmma"),
-               "minicpm3-4b": (0, "wgmma"),
-               "deepseek-v2-lite-16b": (0, "wgmma"),
-               "phi3-mini-3.8b": (2, "simt"),
-               "nemotron-4-15b": (2, "wgmma")}
-TENSOR_CORE = [a for a, (_, route) in FLASH_CALLS.items()
-               if route == "wgmma"]
+# flash launches per prefill at the reduced depth, all on the tensor-core
+# route in bf16
+FLASH_CALLS = {"granite-moe-1b-a400m": 2, "qwen2-vl-2b": 2,
+               "whisper-small": 2, "minicpm3-4b": 0,
+               "deepseek-v2-lite-16b": 0, "phi3-mini-3.8b": 2,
+               "nemotron-4-15b": 2}
 # the registered head dim where the kernels take it; 64 elsewhere
 HEAD_DIM = {"phi3-mini-3.8b": 96, "nemotron-4-15b": 128}
 TOL = 1e-4
@@ -127,20 +124,20 @@ def _bf16_prefill_launches(card, arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", TENSOR_CORE)
+@pytest.mark.parametrize("arch", list(FLASH_CALLS))
 def test_bf16_prefill_launches_the_tensor_core_kernel(card, arch):
-    n = FLASH_CALLS[arch][0]
+    n = FLASH_CALLS[arch]
     assert _bf16_prefill_launches(card, arch) == (n, n)
 
 
 @pytest.mark.gpu
-def test_bf16_prefill_at_head_dim_96_launches_the_simt_kernel(card):
-    """phi3-mini-3.8b's D 96 has no tensor-core instantiation: in bf16
-    every launch (one a layer) takes the SIMT route."""
+def test_bf16_prefill_at_head_dim_96_launches_the_tensor_core_kernel(card):
+    """phi3-mini-3.8b's D 96, which the tensor-core kernel reads as two
+    padded panels: in bf16 every launch (one a layer) takes the tensor-core
+    route and none the SIMT one."""
     assert _cfg("phi3-mini-3.8b").d_head == 96
-    n, route = FLASH_CALLS["phi3-mini-3.8b"]
-    assert route == "simt"
-    assert _bf16_prefill_launches(card, "phi3-mini-3.8b") == (n, 0)
+    n = FLASH_CALLS["phi3-mini-3.8b"]
+    assert _bf16_prefill_launches(card, "phi3-mini-3.8b") == (n, n)
 
 
 @pytest.mark.gpu
@@ -152,7 +149,7 @@ def test_float32_flash_prefill_matches_plain(card, arch):
     batch = _batch(cfg, card, seed=1)
     kernel.reset_launches()
     fused = _prefill(model, cfg, batch, flash=True)
-    assert kernel.LAUNCHES["flash"] == FLASH_CALLS[arch][0]
+    assert kernel.LAUNCHES["flash"] == FLASH_CALLS[arch]
     assert kernel.LAUNCHES["flash_wgmma"] == 0
     plain = _prefill(model, cfg, batch, flash=False)
     torch.testing.assert_close(fused, plain, rtol=TOL, atol=TOL)
@@ -208,7 +205,7 @@ def test_vlm_prefill_from_patch_grid_embeds(card, dtype):
     kernel.reset_launches()
     fused = _prefill(model, cfg, batch, flash=True)
     torch.cuda.synchronize()
-    n = FLASH_CALLS["qwen2-vl-2b"][0]
+    n = FLASH_CALLS["qwen2-vl-2b"]
     assert kernel.LAUNCHES["flash"] == n
     assert kernel.LAUNCHES["flash_wgmma"] == (n if dtype == "bfloat16"
                                               else 0)

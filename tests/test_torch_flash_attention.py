@@ -6,6 +6,8 @@ same seeded numpy inputs.
 Tolerances as the reference's kernel tests state them
 (tests/test_kernels.py): 2e-5 in float32 (sums in another order), 2e-2 in
 bfloat16 (outputs rounded to bf16 after different fp32 sums)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,12 +15,16 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro_torch.configs import reduced_config
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.models import attention, forward, init_model
 
-# tests/test_kernels.py's FLASH_SHAPES: (b, s, h, hkv, d)
+# (b, s, h, hkv, d): tests/test_kernels.py's FLASH_SHAPES, then the head
+# dims 96 (MHA, phi3-mini-3.8b's) and 80 (GQA) at S 256 (the Pallas
+# wrapper needs S % 128 == 0)
 FLASH_SHAPES = [
     (2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 512, 4, 1, 64),
-    (1, 256, 2, 2, 128),
+    (1, 256, 2, 2, 128), (1, 256, 4, 4, 96), (2, 256, 4, 2, 80),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -126,12 +132,13 @@ def _layout(dtype, d, layout):
 @pytest.mark.parametrize("d", [64, 80, 96, 128])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_route_by_dtype_head_dim_and_alignment(dtype, d, layout):
-    """The tensor-core kernel for bf16 at D 64/128 read through TMA (base
-    pointers and strides 16-byte aligned); the SIMT kernel for the rest."""
+    """The tensor-core kernel for bf16 at every head dim read through TMA
+    (base pointers and strides 16-byte aligned; D 80 and 96 as two padded
+    panels); the SIMT kernel for float32 and misaligned bf16."""
     q, k, v = _layout(DTYPES[dtype][1], d, layout)
     kernel.check_inputs(q, k, v)                  # both routes' inputs
-    want = ("wgmma" if dtype == "bfloat16" and d in (64, 128)
-            and layout == "aligned" else "simt")
+    want = ("wgmma" if dtype == "bfloat16" and layout == "aligned"
+            else "simt")
     before = dict(kernel.LAUNCHES)
     assert kernel.choose_route(q, k, v) == want
     assert kernel.LAUNCHES == before                # chosen before a launch
@@ -147,6 +154,39 @@ def test_route_takes_packed_kv_views():
     q1 = torch.zeros(1, 50, 6, 65, dtype=torch.bfloat16)[..., :64]
     assert kernel.choose_route(q1[:, :1, :1], kv[:1, :1, :1],
                                kv[:1, :1, 1:2]) == "wgmma"
+
+
+@pytest.mark.parametrize("n_kv_heads", [8, 2], ids=["mha", "gqa"])
+def test_phi3_shaped_attention_takes_the_tensor_core_route(n_kv_heads):
+    """phi3-mini-3.8b's attention (bf16, head dim 96) through the model's
+    own projections and `sdpa`: every layer hands the flash hook q, k and
+    v that `choose_route` sends to the tensor-core kernel, MHA as phi3
+    has it and GQA."""
+    cfg = dataclasses.replace(reduced_config("phi3-mini-3.8b"), n_heads=8,
+                              n_kv_heads=n_kv_heads, head_dim=96,
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 40)))
+    seen = []
+
+    def hook(q, k, v):
+        seen.append((tuple(q.shape), tuple(k.shape),
+                     kernel.choose_route(q, k, v)))
+        return ops.flash_attention(q, k, v)
+
+    with torch.no_grad():
+        attention.set_flash_impl(hook)
+        try:
+            logits = forward(model, cfg, {"tokens": tokens},
+                             logits_mode="last")
+        finally:
+            attention.set_flash_impl(None)
+    assert seen == [((2, 40, 8, 96), (2, 40, n_kv_heads, 96), "wgmma")] \
+        * cfg.n_layers
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
 
 
 @pytest.mark.parametrize("case", list(_bad_inputs()))

@@ -1,7 +1,8 @@
 """The port's CUDA flash-attention kernels against their plain PyTorch
 version (ref.py), and the model's prefill through them, on the card: the
-tensor-core kernel (route "wgmma": bf16 at D 64 and 128, aligned) and the
-SIMT kernel (everything else), as `kernel.choose_route` picks.
+tensor-core kernel (route "wgmma": bf16 at D 64, 80, 96 and 128, pointers
+and strides 16-byte aligned) and the SIMT kernel (everything else), as
+`kernel.choose_route` picks.
 
 Needs an NVIDIA GPU of compute capability 9.0 and nvcc, so every test here
 is marked `gpu` and skips on a host without one.  The file imports nothing
@@ -50,11 +51,17 @@ def _qkv(b, s, h, hkv, d, dtype, dev, seed=0):
     (1, 1, 2, 1, 64, torch.float32), (4, 2048, 9, 3, 64, torch.bfloat16),
     (2, 256, 4, 2, 128, torch.bfloat16), (1, 1000, 8, 2, 128, torch.bfloat16),
     (1, 1000, 6, 2, 64, torch.bfloat16), (1, 1, 2, 1, 128, torch.bfloat16),
+    # D 80 and 96 on the tensor cores (two panels, the second zero-filled):
+    # GQA and MHA, ragged S, S = 1, and phi3-mini-3.8b's prefill layer
+    (2, 77, 6, 2, 96, torch.bfloat16), (1, 300, 8, 8, 96, torch.bfloat16),
+    (1, 1000, 8, 2, 96, torch.bfloat16), (1, 1, 2, 1, 96, torch.bfloat16),
+    (2, 77, 6, 6, 80, torch.bfloat16), (1, 1000, 8, 2, 80, torch.bfloat16),
+    (1, 1, 2, 1, 80, torch.bfloat16), (4, 2048, 32, 32, 96, torch.bfloat16),
 ], ids=lambda v: str(v).replace("torch.", ""))
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_kernel_matches_ref(card, b, s, h, hkv, d, dtype, causal):
     q, k, v = _qkv(b, s, h, hkv, d, dtype, card)
-    tc = dtype == torch.bfloat16 and d in (64, 128)
+    tc = dtype == torch.bfloat16          # contiguous: TMA reads it
     assert kernel.choose_route(q, k, v) == ("wgmma" if tc else "simt")
     before = dict(kernel.LAUNCHES)
     out = ops.flash_attention(q, k, v, causal=causal)
@@ -80,7 +87,7 @@ def test_kernel_reads_strided_kv(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_kernel_reads_strided_kv_bf16(card, d):
     """The same in bf16 on the tensor-core route: the tensor maps take the
     views' strides, so K/V are read in place, with no copy."""
@@ -113,15 +120,17 @@ def test_tensor_core_route_ignores_strides_of_extent_one(card):
 
 
 @pytest.mark.gpu
-def test_misaligned_bf16_takes_the_simt_kernel(card):
-    """bf16 at D=64 whose head stride is not a multiple of 16 bytes (a
-    padded layout) goes to the SIMT kernel and agrees all the same."""
-    q, k, v = _qkv(1, 130, 4, 2, 64, torch.bfloat16, card)
-    pad = [torch.zeros(*t.shape[:3], 65, dtype=t.dtype, device=card)
+@pytest.mark.parametrize("d", [64, 96])
+def test_misaligned_bf16_takes_the_simt_kernel(card, d):
+    """bf16 whose head stride is not a multiple of 16 bytes (a padded
+    layout, D + 1 elements) goes to the SIMT kernel and agrees all the
+    same."""
+    q, k, v = _qkv(1, 130, 4, 2, d, torch.bfloat16, card)
+    pad = [torch.zeros(*t.shape[:3], d + 1, dtype=t.dtype, device=card)
            for t in (q, k, v)]
     for t, p in zip((q, k, v), pad):
-        p[..., :64] = t
-    qp, kp, vp = (p[..., :64] for p in pad)
+        p[..., :d] = t
+    qp, kp, vp = (p[..., :d] for p in pad)
     assert kernel.choose_route(qp, kp, vp) == "simt"
     before = dict(kernel.LAUNCHES)
     out = ops.flash_attention(qp, kp, vp)
