@@ -26,6 +26,7 @@ from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
 from ..configs.base import ModelConfig
+from ..obs.trace import NULL_TRACER
 from ..parallel.local_shards import attention_on_local_shards
 from .layers import (ParamInit, apply_mrope, apply_rope, fold_tokens,
                      merge_heads, project_heads, rms_norm, shard, split_dim)
@@ -167,14 +168,17 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
 
 
 def gqa_forward(p: GQA, cfg: ModelConfig, x, positions, *, causal=True,
-                window: int = 0):
-    """Full-sequence attention.  x: [B,S,D]."""
+                window: int = 0, tracer=NULL_TRACER):
+    """Full-sequence attention.  x: [B,S,D].  `tracer` records the spans
+    "attn.rope" and "attn.core"."""
     q = shard(project_heads(x, p.wq),
               "batch", None, "heads", None)
     k = project_heads(x, p.wk)
     v = project_heads(x, p.wv)
-    q, k = _rope_qk(cfg, q, k, positions)
-    out = sdpa(q, k, v, causal=causal, window=window)
+    with tracer.span("attn.rope"):
+        q, k = _rope_qk(cfg, q, k, positions)
+    with tracer.span("attn.core"):
+        out = sdpa(q, k, v, causal=causal, window=window)
     return shard(merge_heads(out, p.wo),
                  "batch", "seq", "embed")
 
@@ -325,19 +329,23 @@ def _mla_kv_a(p: MLA, cfg: ModelConfig, x):
 
 
 def mla_forward(p: MLA, cfg: ModelConfig, x, positions, *, causal=True,
-                window: int = 0):
+                window: int = 0, tracer=NULL_TRACER):
+    """`tracer` records the spans "attn.rope" and "attn.core"."""
     q_nope, q_rope = torch.split(_mla_q(p, cfg, x), [cfg.qk_nope_dim,
                                                      cfg.qk_rope_dim], dim=-1)
     c_kv, k_rope = _mla_kv_a(p, cfg, x)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    with tracer.span("attn.rope"):
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                            cfg.rope_theta)
     k_nope = project_heads(c_kv, p.wk_b)
     v = project_heads(c_kv, p.wv_b)
     k_rope_b = k_rope.expand(*k_rope.shape[:2], cfg.n_heads,
                              cfg.qk_rope_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_b], dim=-1)
-    out = sdpa(q_full, k_full, v, causal=causal, window=window)
+    with tracer.span("attn.core"):
+        out = sdpa(q_full, k_full, v, causal=causal, window=window)
     return merge_heads(out, p.wo)
 
 
@@ -399,10 +407,13 @@ def init_cross(init: ParamInit, cfg: ModelConfig) -> GQA:
     return GQA(init, cfg)
 
 
-def cross_forward(p: GQA, cfg: ModelConfig, x, enc_kv):
-    """x: [B,Sd,D]; enc_kv: dict k/v [B,Se,H,D] (precomputed)."""
+def cross_forward(p: GQA, cfg: ModelConfig, x, enc_kv, *,
+                  tracer=NULL_TRACER):
+    """x: [B,Sd,D]; enc_kv: dict k/v [B,Se,H,D] (precomputed).  `tracer`
+    records the span "attn.core"."""
     q = project_heads(x, p.wq)
-    out = sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
+    with tracer.span("attn.core"):
+        out = sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
     return merge_heads(out, p.wo)
 
 

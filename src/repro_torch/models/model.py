@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..device import as_device
+from ..obs.trace import NULL_TRACER, current_tracer
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -173,37 +174,51 @@ def init_model(cfg: ModelConfig, generator: torch.Generator = None, *,
 # forward (train / prefill)
 # ==========================================================================
 def _attn_block_fwd(p: Block, cfg: ModelConfig, x, positions, *, moe: bool,
-                    causal=True, window=0, enc_kv=None):
-    h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
-    if cfg.attn == "mla":
-        a = attn.mla_forward(p.attn, cfg, h, positions, causal=causal,
-                             window=window)
-    else:
-        a = attn.gqa_forward(p.attn, cfg, h, positions, causal=causal,
-                             window=window)
+                    causal=True, window=0, enc_kv=None, tr=NULL_TRACER):
+    """One attention block; `tr` records its spans (`obs.MODEL_SPANS`)."""
+    with tr.span("norm"):
+        h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
+    with tr.span("attn"):
+        if cfg.attn == "mla":
+            a = attn.mla_forward(p.attn, cfg, h, positions, causal=causal,
+                                 window=window, tracer=tr)
+        else:
+            a = attn.gqa_forward(p.attn, cfg, h, positions, causal=causal,
+                                 window=window, tracer=tr)
     x = x + a
     if enc_kv is not None:
-        h = norm(x, p.ln_cross, cfg.norm, cfg.norm_eps)
-        x = x + attn.cross_forward(p.cross, cfg, h, enc_kv)
-    h = norm(x, p.ln2, cfg.norm, cfg.norm_eps)
-    if moe:
-        return x + moe_mod.moe_mlp(p.mlp, cfg, h)
-    return x + moe_mod.dense_mlp(p.mlp, cfg, h)
+        with tr.span("norm"):
+            h = norm(x, p.ln_cross, cfg.norm, cfg.norm_eps)
+        with tr.span("attn"):
+            a = attn.cross_forward(p.cross, cfg, h, enc_kv, tracer=tr)
+        x = x + a
+    with tr.span("norm"):
+        h = norm(x, p.ln2, cfg.norm, cfg.norm_eps)
+    with tr.span("mlp"):
+        y = moe_mod.moe_mlp(p.mlp, cfg, h) if moe \
+            else moe_mod.dense_mlp(p.mlp, cfg, h)
+    return x + y
 
 
-def _mamba_block_fwd(p: MambaBlock, cfg: ModelConfig, x):
-    h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
-    return x + ssm_mod.mamba2_forward(p.ssm, cfg, h)
+def _mamba_block_fwd(p: MambaBlock, cfg: ModelConfig, x, tr=NULL_TRACER):
+    with tr.span("norm"):
+        h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
+    with tr.span("ssm"):
+        y = ssm_mod.mamba2_forward(p.ssm, cfg, h, tracer=tr)
+    return x + y
 
 
-def _logits(params: Model, cfg: ModelConfig, x, logits_mode: str):
-    x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)
+def _logits(params: Model, cfg: ModelConfig, x, logits_mode: str,
+            tr=NULL_TRACER):
+    with tr.span("norm"):
+        x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)
     if logits_mode == "hidden":
         return x
-    if logits_mode == "last":
-        x = x[:, -1:]
-    head = params.head(x.dtype)
-    return torch.einsum("bsd,dv->bsv", fold_tokens(x, head), head)
+    with tr.span("model.head"):
+        if logits_mode == "last":
+            x = x[:, -1:]
+        head = params.head(x.dtype)
+        return torch.einsum("bsd,dv->bsv", fold_tokens(x, head), head)
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -223,78 +238,106 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
     values, and only while gradients are recorded.  Runs under the
     caller's grad mode; the flash and SSD kernels have no backward, so
     serving runs under `no_grad` (the Mamba2 layer takes its plain scan
-    when gradients are recorded, `ssm.mamba2_forward`)."""
-    cdt = dt(cfg.compute_dtype)
-    dev = params.embed.device
-    if cfg.family == "encdec":
-        return _encdec_forward(params, cfg, batch, remat, logits_mode)
-    if cfg.family == "vlm" and "embeds" in batch:
-        x = torch.as_tensor(batch["embeds"], device=dev).to(cdt)
-        positions = torch.as_tensor(batch["positions3"], device=dev)
-    else:
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        b, s = tokens.shape
-        x = embedding_lookup(params.embed, tokens).to(cdt)
-        positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-        if cfg.rope == "mrope":
-            positions = positions[None].expand(3, b, s)
-    x = shard(x, "batch", "seq", "embed")
-    mamba = _remat(_mamba_block_fwd, remat)
-    block = _remat(_attn_block_fwd, remat)
-    if cfg.family == "ssm":
-        for blk in params.layers:
-            x = mamba(blk, cfg, x)
-    elif cfg.family == "hybrid":
-        k = cfg.shared_attn_every
-        for gi in range(cfg.n_layers // k):
-            for blk in params.layers[gi * k:(gi + 1) * k]:
-                x = mamba(blk, cfg, x)
-            x = _attn_block_fwd(params.shared_block, cfg, x, positions,
-                                moe=False, window=cfg.sliding_window)
-    else:
-        if cfg.first_dense_layers:
-            cfg_dense = dataclasses.replace(cfg,
-                                            d_ff=cfg.d_ff_dense or cfg.d_ff)
-            for blk in params.dense_layers:
-                x = block(blk, cfg_dense, x, positions, moe=False)
-        for blk in params.layers:
-            x = block(blk, cfg, x, positions, moe=cfg.family == "moe",
-                      window=cfg.sliding_window)
-    out = _logits(params, cfg, x, logits_mode)
-    if logits_mode == "hidden":
-        return out
-    return shard(out, "batch", None, "vocab")
+    when gradients are recorded, `ssm.mamba2_forward`).
+
+    The call records the spans of `obs.MODEL_SPANS` into the ambient
+    tracer (`obs.current_tracer()`, read once a call; `NULL_TRACER`
+    unless a scope activated one): no sync, values unchanged."""
+    tr = current_tracer()
+    with tr.span("model.forward", family=cfg.family) as call:
+        if cfg.family == "encdec":
+            return _encdec_forward(params, cfg, batch, remat, logits_mode,
+                                   tr, call)
+        cdt = dt(cfg.compute_dtype)
+        dev = params.embed.device
+        with tr.span("model.embed"):
+            if cfg.family == "vlm" and "embeds" in batch:
+                x = torch.as_tensor(batch["embeds"], device=dev).to(cdt)
+                positions = torch.as_tensor(batch["positions3"], device=dev)
+            else:
+                tokens = torch.as_tensor(batch["tokens"], device=dev)
+                b, s = tokens.shape
+                x = embedding_lookup(params.embed, tokens).to(cdt)
+                positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+                if cfg.rope == "mrope":
+                    positions = positions[None].expand(3, b, s)
+            x = shard(x, "batch", "seq", "embed")
+        call.set(B=x.shape[0], S=x.shape[1])
+        mamba = _remat(_mamba_block_fwd, remat)
+        block = _remat(_attn_block_fwd, remat)
+        if cfg.family == "ssm":
+            for i, blk in enumerate(params.layers):
+                with tr.span("model.block", layer=i):
+                    x = mamba(blk, cfg, x, tr)
+        elif cfg.family == "hybrid":
+            k = cfg.shared_attn_every
+            for gi in range(cfg.n_layers // k):
+                for i in range(gi * k, (gi + 1) * k):
+                    with tr.span("model.block", layer=i):
+                        x = mamba(params.layers[i], cfg, x, tr)
+                with tr.span("model.block", layer="shared"):
+                    x = _attn_block_fwd(params.shared_block, cfg, x,
+                                        positions, moe=False,
+                                        window=cfg.sliding_window, tr=tr)
+        else:
+            n_dense = cfg.first_dense_layers
+            if n_dense:
+                cfg_dense = dataclasses.replace(
+                    cfg, d_ff=cfg.d_ff_dense or cfg.d_ff)
+                for i, blk in enumerate(params.dense_layers):
+                    with tr.span("model.block", layer=i):
+                        x = block(blk, cfg_dense, x, positions, moe=False,
+                                  tr=tr)
+            for i, blk in enumerate(params.layers, n_dense):
+                with tr.span("model.block", layer=i):
+                    x = block(blk, cfg, x, positions,
+                              moe=cfg.family == "moe",
+                              window=cfg.sliding_window, tr=tr)
+        out = _logits(params, cfg, x, logits_mode, tr)
+        if logits_mode == "hidden":
+            return out
+        return shard(out, "batch", None, "vocab")
 
 
-def _dec_block_fwd(p: Block, cfg: ModelConfig, y, positions, enc_out):
+def _dec_block_fwd(p: Block, cfg: ModelConfig, y, positions, enc_out,
+                   tr=NULL_TRACER):
+    with tr.span("attn"):
+        enc_kv = attn.cross_kv(p.cross, cfg, enc_out)
     return _attn_block_fwd(p, cfg, y, positions, moe=False, causal=True,
-                           enc_kv=attn.cross_kv(p.cross, cfg, enc_out))
+                           enc_kv=enc_kv, tr=tr)
 
 
-def _encdec_forward(params: Model, cfg: ModelConfig, batch,
-                    remat: str = "none", logits_mode: str = "all"):
+def _encdec_forward(params: Model, cfg: ModelConfig, batch, remat: str,
+                    logits_mode: str, tr, call):
     """Whisper: fixed sinusoidal positions; a non-causal encoder over the
     stub frame embeddings, normed by `ln_enc`; a causal decoder whose
-    blocks cross-attend to the encoder's output."""
+    blocks cross-attend to the encoder's output.  `tr` records the spans,
+    `call` is the call's own."""
     cdt = dt(cfg.compute_dtype)
     dev = params.embed.device
-    frames = torch.as_tensor(batch["frames"], device=dev).to(cdt)
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    b, se = frames.shape[:2]
-    sd = tokens.shape[1]
-    pos_e = torch.arange(se, device=dev)[None, :].expand(b, se)
-    pos_d = torch.arange(sd, device=dev)[None, :].expand(b, sd)
-    x = frames + sinusoidal_positions(se, cfg.d_model).to(dev, cdt)[None]
+    with tr.span("model.embed"):
+        frames = torch.as_tensor(batch["frames"], device=dev).to(cdt)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        b, se = frames.shape[:2]
+        sd = tokens.shape[1]
+        pos_e = torch.arange(se, device=dev)[None, :].expand(b, se)
+        pos_d = torch.arange(sd, device=dev)[None, :].expand(b, sd)
+        x = frames + sinusoidal_positions(se, cfg.d_model).to(dev, cdt)[None]
+    call.set(B=b, S=sd)
     block = _remat(_attn_block_fwd, remat)
-    for blk in params.enc_layers:
-        x = block(blk, cfg, x, pos_e, moe=False, causal=False)
-    enc_out = norm(x, params.ln_enc, cfg.norm, cfg.norm_eps)
-    y = embedding_lookup(params.embed, tokens).to(cdt)
-    y = y + sinusoidal_positions(sd, cfg.d_model).to(dev, cdt)[None]
+    for i, blk in enumerate(params.enc_layers):
+        with tr.span("model.block", layer=i):
+            x = block(blk, cfg, x, pos_e, moe=False, causal=False, tr=tr)
+    with tr.span("norm"):
+        enc_out = norm(x, params.ln_enc, cfg.norm, cfg.norm_eps)
+    with tr.span("model.embed"):
+        y = embedding_lookup(params.embed, tokens).to(cdt)
+        y = y + sinusoidal_positions(sd, cfg.d_model).to(dev, cdt)[None]
     dec_block = _remat(_dec_block_fwd, remat)
-    for blk in params.dec_layers:
-        y = dec_block(blk, cfg, y, pos_d, enc_out)
-    return _logits(params, cfg, y, logits_mode)
+    for i, blk in enumerate(params.dec_layers, len(params.enc_layers)):
+        with tr.span("model.block", layer=i):
+            y = dec_block(blk, cfg, y, pos_d, enc_out, tr)
+    return _logits(params, cfg, y, logits_mode, tr)
 
 
 # ==========================================================================

@@ -25,6 +25,7 @@ from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import (segsum, ssd_chunk_scan,  # noqa: F401
                                     ssd_chunk_scan_streaming, ssd_reference)
+from ..obs.trace import NULL_TRACER
 from .layers import ParamInit, fold_tokens, rms_norm, shard, split_dim
 
 
@@ -86,38 +87,45 @@ def _dt_and_a(p: Mamba2, dtr):
     return dt, -torch.exp(p.A_log.float())
 
 
-def mamba2_forward(p: Mamba2, cfg: ModelConfig, x):
+def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
     """x: [B,T,D] -> [B,T,D].  The SSD scan runs on float32 views of the
     conv output (xh, B and C are strided slices of one float32 tensor):
     while gradients are recorded for any of its inputs, on the
     differentiable `ssd_chunk_scan_streaming` (the reference's scan, in
     every mode there); otherwise on `ssd_ops.ssd_scan` (the CUDA kernel
     for CUDA tensors, which raises under autograd).  The choice is by
-    grad mode only, never by a failure."""
+    grad mode only, never by a failure.  `tracer` records the spans
+    "ssm.conv" (the split through dt's softplus), "ssm.scan" and
+    "ssm.gate" (the D skip through the RMS norm)."""
     zxbcdt = shard(fold_tokens(x, p.in_proj) @ p.in_proj,
                    "batch", None, "ssm_inner")
-    z, xc, B, C, dtr = _split_proj(cfg, zxbcdt)
-    conv_in = torch.cat([xc, B, C], dim=-1)
-    conv_out, _ = _causal_conv(conv_in, p.conv_w, p.conv_b)
     di = cfg.d_inner
     g, n = cfg.ssm_ngroups, cfg.d_state
     b, t, _ = x.shape
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
-    conv32 = conv_out.float()
-    xh = shard(split_dim(conv32[..., :di], -1, (h, pdim)),
-               "batch", None, "ssm_heads", None)
-    Bh = split_dim(conv32[..., di:di + g * n], -1, (g, n))
-    Ch = split_dim(conv32[..., di + g * n:], -1, (g, n))
-    dt, A = _dt_and_a(p, dtr)
+    with tracer.span("ssm.conv"):
+        z, xc, B, C, dtr = _split_proj(cfg, zxbcdt)
+        conv_in = torch.cat([xc, B, C], dim=-1)
+        # the conv's state, a view of its padded input, is dropped at once
+        conv_out = _causal_conv(conv_in, p.conv_w, p.conv_b)[0]
+        conv32 = conv_out.float()
+        xh = shard(split_dim(conv32[..., :di], -1, (h, pdim)),
+                   "batch", None, "ssm_heads", None)
+        Bh = split_dim(conv32[..., di:di + g * n], -1, (g, n))
+        Ch = split_dim(conv32[..., di + g * n:], -1, (g, n))
+        dt, A = _dt_and_a(p, dtr)
     scan_args = (xh, dt, A, Bh, Ch)
-    if torch.is_grad_enabled() and any(v.requires_grad for v in scan_args):
-        y = ssd_chunk_scan_streaming(*scan_args, cfg.chunk)
-    else:
-        y = ssd_ops.ssd_scan(*scan_args, chunk=cfg.chunk)
-    y = shard(y + xh * p.D.float()[None, None, :, None],
-              "batch", None, "ssm_heads", None)
-    y = y.reshape(b, t, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p.out_norm, cfg.norm_eps)
+    with tracer.span("ssm.scan"):
+        if torch.is_grad_enabled() and \
+                any(v.requires_grad for v in scan_args):
+            y = ssd_chunk_scan_streaming(*scan_args, cfg.chunk)
+        else:
+            y = ssd_ops.ssd_scan(*scan_args, chunk=cfg.chunk)
+    with tracer.span("ssm.gate"):
+        y = shard(y + xh * p.D.float()[None, None, :, None],
+                  "batch", None, "ssm_heads", None)
+        y = y.reshape(b, t, di).to(x.dtype)
+        y = rms_norm(y * F.silu(z), p.out_norm, cfg.norm_eps)
     return shard(fold_tokens(y, p.out_proj) @ p.out_proj,
                  "batch", "seq", "embed")
 

@@ -20,8 +20,8 @@ from .metrics import (NULL_METRICS, Counter, Gauge, Histogram, Metrics,
                       NullMetrics)
 from .progress import (EVENT_KINDS, CollectSink, ConsoleSink, EventCursor,
                        ProgressEvent, ProgressStream, ReplaySink, as_stream)
-from .trace import (DRIVER_PHASES, NULL_TRACER, PHASES, NullTracer, Span,
-                    TraceBuffer, Tracer, activate, as_tracer,
-                    current_tracer, deferred_sync, family_of)
+from .trace import (DRIVER_PHASES, MODEL_SPANS, NULL_TRACER, PHASES,
+                    NullTracer, Span, TraceBuffer, Tracer, activate,
+                    as_tracer, current_tracer, deferred_sync, family_of)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -15,11 +15,16 @@ Design rules:
   * the default tracer everywhere is `NULL_TRACER`, whose `span()` returns
     one shared no-op context manager — the off path costs two attribute
     lookups and no allocation;
-  * spans are host-side.  CUDA launches are asynchronous: a span that
-    should include device time must bracket the copy back to the host
-    (`.cpu()`) that waits for the result — every instrumented call site in
-    `core.backend` and `search.batch_frontier` copies to the host inside
-    its span, so device time lands in the span that launched the work;
+  * spans are host-side: a span's own times are the host's, and CUDA
+    launches are asynchronous.  A span that must time the device's work
+    on the host clock brackets the copy back to the host (`.cpu()`) that
+    waits for the result, as the call sites in `core.backend` and
+    `search.batch_frontier` do.  Spans need no sync for device time
+    otherwise: while `torch.profiler` records, a recording
+    tracer also opens each span as a `torch.profiler.record_function`
+    range, so the span lies on the device trace's clock and every kernel
+    can be put down to the innermost span open when the host launched it
+    (the model's spans, `MODEL_SPANS`, are read that way);
   * instrumented library code (mapper, backend, cache) reads the *ambient*
     tracer via `current_tracer()` instead of growing a `tracer=` parameter
     on every function; `activate(tr)` scopes it (contextvar — safe across
@@ -56,6 +61,18 @@ DRIVER_PHASES = ("propose", "static-filter", "pack", "validate",
 #: All phase-flagged span names repo-wide: the driver phases plus the
 #: serving engine's per-tick phase.
 PHASES = DRIVER_PHASES + ("serve.tick",)
+
+#: The spans of the model's prefill `forward` (`models/`), outermost
+#: first: the call, the embedding, each layer block (its residual adds as
+#: self time), the residual stream's norms, attention (the projections as
+#: self time), its RoPE and its core (flash or the plain path), the MLP,
+#: the Mamba2 layer (in/out projections as self time), its conv chain
+#: (split through the conv, the float32 views and dt's softplus), its SSD
+#: scan and its gate chain (the D skip, the cast, the gate and the RMS
+#: norm), and the head (the last-position slice, the cast and the GEMM).
+MODEL_SPANS = ("model.forward", "model.embed", "model.block", "norm",
+               "attn", "attn.rope", "attn.core", "mlp", "ssm", "ssm.conv",
+               "ssm.scan", "ssm.gate", "model.head")
 
 # ---------------------------------------------------------------------------
 # span records
@@ -224,21 +241,30 @@ class TraceBuffer:
 class _SpanCtx:
     """Live span handle: a context manager that records on exit.
     `set(**attrs)` attaches attributes discovered mid-span (row counts,
-    group sizes)."""
-    __slots__ = ("_tracer", "_span")
+    group sizes).  While `torch.profiler` records, the span is
+    also a `record_function` range, entered and exited with it."""
+    __slots__ = ("_tracer", "_span", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self._span = span
+        self._range = None
 
     def set(self, **attrs) -> "_SpanCtx":
         self._span.attrs.update(attrs)
         return self
 
     def __enter__(self) -> "_SpanCtx":
+        prof = self._tracer._profiler
+        if prof._is_profiler_enabled:
+            self._range = prof.record_function(self._span.name)
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         self._span.t1 = time.perf_counter()
         self._tracer._pop(self._span)
         return None
@@ -267,12 +293,16 @@ class Tracer:
     Nesting is tracked per thread (a `threading.local` stack), so
     concurrent recorders interleave safely and each thread's spans parent
     correctly.  Metrics (`obs.metrics.Metrics`) ride along so instrumented
-    code reaches both through one handle."""
+    code reaches both through one handle.  While `torch.profiler`
+    records (the profiler's own enabled flag), each span is also a
+    profiler range of its name (`_SpanCtx`)."""
 
     enabled = True
 
     def __init__(self, buffer: Optional[TraceBuffer] = None, metrics=None):
+        import torch.autograd.profiler
         from .metrics import Metrics
+        self._profiler = torch.autograd.profiler
         self.buffer = buffer or TraceBuffer()
         self.metrics = metrics if metrics is not None else Metrics()
         self._local = threading.local()
