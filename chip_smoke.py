@@ -9,7 +9,7 @@ Each phase prints one line; any failure exits non-zero, and no phase
 catches its own failure.
 
   1. device   the card's name and power limit (nvidia-smi) and capability
-  2. build    nvcc builds the three kernel libraries from this checkout;
+  2. build    nvcc builds the four kernel libraries from this checkout;
               ptxas's registers and spills and the dynamic shared memory
               of the tensor-core flash kernel at each head dim (64, 80,
               96, 128), and each instantiation's count of HGMMA (wgmma)
@@ -99,10 +99,18 @@ catches its own failure.
               both routes in the same run, beside the bound that applies
               to each (`ssd_bound_ms`) and the plain version's time; the
               profiler's time of one op call sums its sub-kernels
+  9b. conv    the Mamba2 conv-chain kernel (`kernels/ssm_conv`, through
+              `ops.ssm_conv`) on bf16 inputs at mamba2-2.7b's and
+              zamba2-2.7b's layer widths, [4, 2048]: one launch a call,
+              against `ref.conv_chain` on float32 copies at 1e-5 and
+              within 12 u s of the eager bf16 chain (CONV_BF16_ULPS);
+              each timed as in phase 7, beside its bytes' bound
+              (`conv_bound_ms`) and the eager chain's time
  10. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
               weights from a CUDA generator seeded with 0): (a) the prefill
               `forward(tokens [4, 2048], logits_mode="last")` must launch
-              the SSD op 64 times, all on route "tc", and nothing else
+              the SSD op 64 times, all on route "tc", the conv kernel
+              (`kernels/ssm_conv`) 64 times, and nothing else
               (the counters count op calls); timed, with the
               device's busy share; (b) `ServeEngine(batch=4, max_len=256)`
               answers the serve phase's load; (c) with the weights cast to float32 (bf16 rounding
@@ -113,9 +121,9 @@ catches its own failure.
  11. hybrid   zamba2-2.7b at full width and depth (54 Mamba2 layers, the
               shared GQA block after every 6, window 4096): the prefill
               [1, 2048] with the flash hook installed calls the SSD op 54
-              times, all on route "tc", and the flash kernel never (the
-              window keeps
-              it off, as in the reference's `sdpa`); decode over one chunk
+              times, all on route "tc", the conv kernel 54 times, and the
+              flash kernel never (the window keeps it off, as in the
+              reference's `sdpa`); decode over one chunk
               matches the prefill in float32, as in phase 10
  12. service  the DSE service (`DSEService(workers=2)`, a disk cache in a
               temporary directory) answering TRIM design queries over one
@@ -206,7 +214,7 @@ catches its own failure.
               train_4k on the fake 16 x 16 mesh, one microbatch) and its
               roofline terms
 
-Phase 2 builds the three kernel libraries at once (one nvcc each).  The
+Phase 2 builds the four kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
@@ -352,6 +360,22 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
 LOGIT_TOL_F32 = 2e-3
 HYBRID_PREFILL_B = 1
 
+# The conv-chain kernel (phase 9b): each model's layer at the prefill's
+# [PREFILL_B, PREFILL_S], bf16 as the models run it, mamba2-2.7b's first.
+CONV_SOURCE = "src/repro_torch/kernels/ssm_conv/csrc/ssm_conv.cu"
+CONV_ARCHS = (SSM_ARCH, HYBRID_ARCH)
+# Against the chain on float32 copies of the same inputs: the kernel sums
+# the same products in float32 (fused multiply-adds, `__expf`).  Against
+# the eager bf16 chain (what the models ran before the kernel): each of
+# its K products, K - 1 sums, the bias add and the SiLU rounds to bf16
+# (u = 2**-8) by at most u s, s = sum_j |w_j x_j| + |b| the magnitude the
+# sums work at, and the SiLU's slope is at most 1.1: to first order
+# 1.1 (2 K + 1) u s = 9.9 u s at K = 4; 12 u s allowed, as
+# tests/test_torch_ssm_conv_gpu.py allows.
+CONV_TOL = 1e-5
+CONV_BF16_ULPS = 12
+U_BF16 = 2.0 ** -8
+
 # The families phase: every configuration the earlier phases do not
 # serve, at full width and depth (random weights from a CUDA generator
 # seeded with SEED), in the order run, with its flash launches per
@@ -407,8 +431,10 @@ def build_phase() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssm_conv import kernel as conv
     t0 = time.perf_counter()
-    libs = build_all([kernel.LIBRARY, flash.LIBRARY, ssd.LIBRARY])
+    libs = build_all([kernel.LIBRARY, flash.LIBRARY, ssd.LIBRARY,
+                      conv.LIBRARY])
     dt = time.perf_counter() - t0
     for lib in libs:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -533,16 +559,20 @@ def launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    return {**kernel.LAUNCHES, **flash.LAUNCHES, **ssd.LAUNCHES}
+    from repro_torch.kernels.ssm_conv import kernel as conv
+    return {**kernel.LAUNCHES, **flash.LAUNCHES, **ssd.LAUNCHES,
+            **conv.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssm_conv import kernel as conv
     kernel.reset_launches()
     flash.reset_launches()
     ssd.reset_launches()
+    conv.reset_launches()
 
 
 def device_times_ms(fn, n: int = N_TIMED, cold: bool = False):
@@ -1667,14 +1697,129 @@ def ssd_phase(dev, cases=SSD_CASES):
     return record
 
 
+def conv_bound_ms(b, t, c, h, k, esize=2):
+    """The least time the card could take for the conv chain on these
+    shapes: its bytes at HBM bandwidth (K multiply-adds and one exp a
+    channel are ~0.3 operations a byte, far below any ridge): the conv's C
+    and dt's H columns of zxbcdt read once at `esize` bytes, conv32 and dt
+    written once in float32, the weights ((K + 1) C + H) read once."""
+    nbytes = b * t * (c + h) * (esize + 4) + ((k + 1) * c + h) * esize
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _conv_inputs(cfg, b, t, dev, seed=SEED):
+    """(zxbcdt, conv_w, conv_b, dt_bias) in bf16 on the card at `cfg`'s
+    layer: zxbcdt of unit scale, conv_w at the model's scale K**-0.5, a
+    small bias, dt_bias about log(expm1(0.01))."""
+    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.d_state
+    c, h, k = di + 2 * gn, cfg.n_ssm_heads, cfg.d_conv
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def z(*shape, scale=1.0, shift=0.0):
+        v = torch.randn(shape, generator=gen, device=dev) * scale + shift
+        return v.to(torch.bfloat16)
+
+    return (z(b, t, 2 * di + 2 * gn + h), z(k, c, scale=k ** -0.5),
+            z(c, scale=0.1), z(h, scale=0.5, shift=-4.6))
+
+
+def _conv_scale(zxbcdt, w, bias, di, gn):
+    """s[b, t, c] = sum_j |w[j, c] x[b, t - K + 1 + j, c]| + |bias[c]|,
+    in float32."""
+    x = zxbcdt[..., di:2 * di + 2 * gn].float().abs()
+    k, t = w.shape[0], x.shape[1]
+    full = torch.cat([x.new_zeros(x.shape[0], k - 1, x.shape[2]), x], 1)
+    return sum(full[:, j:j + t] * w[j].float().abs() for j in range(k)) \
+        + bias.float().abs()
+
+
+def ssm_conv_phase(dev):
+    """The conv-chain kernel through `ops.ssm_conv` at each of CONV_ARCHS'
+    layers, bf16 at [PREFILL_B, PREFILL_S]: one launch a call, against
+    `ref.conv_chain` on float32 copies at CONV_TOL and within
+    CONV_BF16_ULPS u s of the eager bf16 chain; timed as the SSD phase
+    times (events cold and warm, the profiler's time a launch), beside
+    the eager chain's time and the bytes' bound -> the kernel's record
+    (mamba2-2.7b's layer, zamba2-2.7b's times beside)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_conv import kernel, ops, ref
+    record = None
+    b, t = PREFILL_B, PREFILL_S
+    for arch in CONV_ARCHS:
+        cfg = get_config(arch)
+        di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.d_state
+        c, h = di + 2 * gn, cfg.n_ssm_heads
+        shape = f"{arch} layer: B={b} T={t} C={c} H={h} K={cfg.d_conv}"
+        args = _conv_inputs(cfg, b, t, dev)
+        run = lambda: ops.ssm_conv(*args, d_inner=di, gn=gn)  # noqa: E731
+        plain = lambda: ref.conv_chain(*args, di, gn)        # noqa: E731
+        with torch.no_grad():
+            before = kernel.LAUNCHES["fused"]
+            _, out, dt = run()
+            torch.cuda.synchronize()
+            if kernel.LAUNCHES["fused"] != before + 1:
+                raise RuntimeError(f"conv {shape}: launches {before} -> "
+                                   f"{kernel.LAUNCHES['fused']}, want one")
+            _, want, want_dt = ref.conv_chain(*[v.float() for v in args],
+                                              di, gn)
+            torch.testing.assert_close(out, want, rtol=CONV_TOL,
+                                       atol=CONV_TOL)
+            torch.testing.assert_close(dt, want_dt, rtol=CONV_TOL,
+                                       atol=CONV_TOL)
+            err32 = max(float((out - want).abs().max()),
+                        float((dt - want_dt).abs().max()))
+            del want, want_dt
+            _, eager, eager_dt = plain()
+            room = CONV_BF16_ULPS * U_BF16 \
+                * _conv_scale(args[0], args[1], args[2], di, gn) + 1e-6
+            over = float(((out - eager).abs() / room).max())
+            err_bf16 = float((out - eager).abs().max())
+            if over > 1:
+                raise RuntimeError(f"conv {shape}: {over:.3g} times the "
+                                   f"bf16 chain's bound")
+            torch.testing.assert_close(dt, eager_dt, rtol=CONV_TOL,
+                                       atol=CONV_TOL)
+            del eager, eager_dt, room, out, dt
+            ms = device_times_ms(run, cold=True)
+            warm_ms = device_times_ms(run)
+            plain_ms = device_times_ms(plain, cold=True)
+            _, (prof_ms, _, kern_n) = profile_kernels(
+                lambda: [run() for _ in range(N_TIMED)], ("ssm_conv_kernel",))
+        b_ms = conv_bound_ms(b, t, c, h, cfg.d_conv)
+        if b_ms > ms:
+            raise RuntimeError(f"conv {shape}: {ms:.4f} ms is under its "
+                               f"bound {b_ms:.4f} ms")
+        say("conv", f"{shape}: max abs err {err32:.3g} against the float32 "
+            f"chain (tol {CONV_TOL:g}), {err_bf16:.3g} against the bf16 "
+            f"chain ({over:.3g} of its {CONV_BF16_ULPS} u s bound); "
+            f"{ms:.4f} ms cold, {warm_ms:.4f} ms warm L2, profiler "
+            f"{_ms(prof_ms)} ms a launch (>= {kern_n} recorded); bound "
+            f"{b_ms:.5f} ms (bytes), at {100 * b_ms / ms:.1f}% of it; the "
+            f"eager chain {plain_ms:.4f} ms cold")
+        if record is None:
+            record = dict(
+                name="ssm_conv", route="cuda", source=CONV_SOURCE,
+                replaces=None, launches=None, max_abs_err=err32, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=None, max_abs_err_bf16_chain=err_bf16,
+                bf16_bound_share=over, warm_ms=warm_ms,
+                profiler_ms=prof_ms, shape=shape)
+        else:
+            record.update(zamba2_ms=ms, zamba2_plain_ms=plain_ms,
+                          zamba2_bound_ms=b_ms)
+        del args
+        torch.cuda.empty_cache()
+    return record
+
+
 def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
     """A Mamba2 model (ssm or hybrid family) at the size `cfg` gives, with
     the flash hook installed: the prefill [prefill_b, PREFILL_S] must
-    launch the SSD kernel once a Mamba2 layer and nothing else; then the
-    engine (when `engine`); then, with the weights cast to float32 in
-    place, teacher-forced decode over TEACHER_LEN tokens against the
-    kernel prefill's last logits (LOGIT_TOL_F32) -> SSD launches in one
-    prefill."""
+    launch the SSD and conv kernels once a Mamba2 layer and nothing else;
+    then the engine (when `engine`); then, with the weights cast to
+    float32 in place, teacher-forced decode over TEACHER_LEN tokens
+    against the kernel prefill's last logits (LOGIT_TOL_F32) -> the
+    launch counts of one prefill."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import (attention, decode_step, forward,
                                     init_cache, init_model)
@@ -1710,11 +1855,11 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
             torch.cuda.synchronize()
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "ssd": cfg.n_layers,
-                    "ssd_tc": cfg.n_layers}
+                    "ssd_tc": cfg.n_layers, "fused": cfg.n_layers}
             if launches != want:
                 raise RuntimeError(f"prefill launches {launches}, want "
-                                   f"ssd=ssd_tc={cfg.n_layers} and no "
-                                   f"other")
+                                   f"ssd=ssd_tc=fused={cfg.n_layers} and "
+                                   f"no other")
             if tuple(logits.shape) != (prefill_b, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"prefill: bad logits "
@@ -1798,7 +1943,7 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
         f"kernel prefill is {drift:.4g} ({drift / scale:.3g}) from the "
         f"float32 one; {time.perf_counter() - t0:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return launches["ssd"]
+    return launches
 
 
 def _family_batch(cfg, rng, dev):
@@ -2589,10 +2734,13 @@ def main() -> int:
     records["flash_attention"]["launches"] = serve_phase(dev)
     from repro_torch.configs import get_config
     records["ssd_scan"] = ssd_phase(dev)
-    records["ssd_scan"]["launches"] = ssm_serve_phase(
-        dev, get_config(SSM_ARCH), "ssm", PREFILL_B)
-    ssm_serve_phase(dev, get_config(HYBRID_ARCH), "hybrid",
-                    HYBRID_PREFILL_B, engine=False)
+    records["ssm_conv"] = ssm_conv_phase(dev)
+    ssm = ssm_serve_phase(dev, get_config(SSM_ARCH), "ssm", PREFILL_B)
+    hybrid = ssm_serve_phase(dev, get_config(HYBRID_ARCH), "hybrid",
+                             HYBRID_PREFILL_B, engine=False)
+    records["ssd_scan"]["launches"] = ssm["ssd"]
+    records["ssm_conv"].update(launches=ssm["fused"], launches_by_path={
+        SSM_ARCH: ssm["fused"], HYBRID_ARCH: hybrid["fused"]})
     by_path = {SERVE_ARCH: records["flash_attention"]["launches"],
                HYBRID_ARCH: 0}
     for arch in FAMILY_FLASH:

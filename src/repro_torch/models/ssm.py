@@ -9,6 +9,13 @@ tensors); training runs the model's own differentiable scan,
 The plain SSD functions live in `kernels/ssd_scan/ref.py` and are
 re-exported here.
 
+The conv chain between in_proj and the scan (split, causal depthwise conv
+with bias and SiLU, float32 cast, dt's softplus) runs through
+`kernels/ssm_conv/ops.py::ssm_conv` (its plain version `conv_chain` for
+CPU tensors, one CUDA kernel for CUDA tensors) and, while gradients are
+recorded, on `conv_chain` itself; the plain conv functions live in
+`kernels/ssm_conv/ref.py`.
+
 Layout: x [B, T, D] -> in_proj -> (z, xc, B, C, dt); causal depthwise conv
 on (xc, B, C); SSD over heads H = d_inner / headdim with scalar A per head;
 gated (silu(z)) output projection.
@@ -25,6 +32,9 @@ from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import (segsum, ssd_chunk_scan,  # noqa: F401
                                     ssd_chunk_scan_streaming, ssd_reference)
+from ..kernels.ssm_conv import ops as conv_ops
+from ..kernels.ssm_conv.ref import (causal_conv, conv_chain, dt_softplus,
+                                    split_proj)
 from ..obs.trace import NULL_TRACER
 from .layers import ParamInit, fold_tokens, rms_norm, shard, split_dim
 
@@ -58,45 +68,17 @@ def init_mamba2(init: ParamInit, cfg: ModelConfig) -> Mamba2:
     return Mamba2(init, cfg)
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt):
-    di = cfg.d_inner
-    gn = cfg.ssm_ngroups * cfg.d_state
-    return torch.split(zxbcdt, [di, di, gn, gn, zxbcdt.shape[-1] - 2 * di
-                                - 2 * gn], dim=-1)
-
-
-def _causal_conv(xbc, w, b, state=None):
-    """Depthwise causal conv1d.  xbc: [B,T,C]; w: [K,C].  Returns (silu(y),
-    the last K-1 inputs [B,K-1,C]); `state` is the history before xbc
-    (zeros when None)."""
-    k = w.shape[0]
-    if state is None:
-        state = torch.zeros((xbc.shape[0], k - 1, xbc.shape[2]),
-                            dtype=xbc.dtype, device=xbc.device)
-    full = torch.cat([state, xbc], dim=1)                  # [B, T+K-1, C]
-    # windowed sum: y[t] = sum_j w[j] * full[t+j]
-    t = xbc.shape[1]
-    y = sum(full[:, j:j + t, :] * w[j] for j in range(k))
-    y = y + b
-    new_state = full[:, -(k - 1):, :] if k > 1 else state
-    return F.silu(y), new_state
-
-
-def _dt_and_a(p: Mamba2, dtr):
-    dt = F.softplus(dtr.float() + p.dt_bias.float())
-    return dt, -torch.exp(p.A_log.float())
-
-
 def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
-    """x: [B,T,D] -> [B,T,D].  The SSD scan runs on float32 views of the
-    conv output (xh, B and C are strided slices of one float32 tensor):
-    while gradients are recorded for any of its inputs, on the
-    differentiable `ssd_chunk_scan_streaming` (the reference's scan, in
-    every mode there); otherwise on `ssd_ops.ssd_scan` (the CUDA kernel
-    for CUDA tensors, which raises under autograd).  The choice is by
-    grad mode only, never by a failure.  `tracer` records the spans
-    "ssm.conv" (the split through dt's softplus), "ssm.scan" and
-    "ssm.gate" (the D skip through the RMS norm)."""
+    """x: [B,T,D] -> [B,T,D].  The conv chain and the SSD scan each run, by
+    grad mode only and never by a failure: while gradients are recorded
+    for any of their inputs, on the differentiable `conv_chain` and
+    `ssd_chunk_scan_streaming` (the reference's chain and scan, in every
+    mode there); otherwise on `conv_ops.ssm_conv` and `ssd_ops.ssd_scan`
+    (CUDA kernels for CUDA tensors, which raise under autograd).  The scan
+    runs on float32 views of the conv output (xh, B and C are strided
+    slices of one float32 tensor).  `tracer` records the spans "ssm.conv"
+    (in_proj's output through dt's softplus), "ssm.scan" and "ssm.gate"
+    (the D skip through the RMS norm)."""
     zxbcdt = shard(fold_tokens(x, p.in_proj) @ p.in_proj,
                    "batch", None, "ssm_inner")
     di = cfg.d_inner
@@ -104,16 +86,18 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
     b, t, _ = x.shape
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     with tracer.span("ssm.conv"):
-        z, xc, B, C, dtr = _split_proj(cfg, zxbcdt)
-        conv_in = torch.cat([xc, B, C], dim=-1)
-        # the conv's state, a view of its padded input, is dropped at once
-        conv_out = _causal_conv(conv_in, p.conv_w, p.conv_b)[0]
-        conv32 = conv_out.float()
+        conv_args = (zxbcdt, p.conv_w, p.conv_b, p.dt_bias)
+        if torch.is_grad_enabled() and \
+                any(v.requires_grad for v in conv_args):
+            z, conv32, dt = conv_chain(*conv_args, di, g * n)
+        else:
+            z, conv32, dt = conv_ops.ssm_conv(*conv_args, d_inner=di,
+                                              gn=g * n)
         xh = shard(split_dim(conv32[..., :di], -1, (h, pdim)),
                    "batch", None, "ssm_heads", None)
         Bh = split_dim(conv32[..., di:di + g * n], -1, (g, n))
         Ch = split_dim(conv32[..., di + g * n:], -1, (g, n))
-        dt, A = _dt_and_a(p, dtr)
+        A = -torch.exp(p.A_log.float())
     scan_args = (xh, dt, A, Bh, Ch)
     with tracer.span("ssm.scan"):
         if torch.is_grad_enabled() and \
@@ -150,12 +134,12 @@ def mamba2_decode(p: Mamba2, cfg: ModelConfig, x, state):
     ssm states are written into `state` in place, and the same dict comes
     back (the values equal the reference's)."""
     zxbcdt = x @ p.in_proj
-    z, xc, B, C, dtr = _split_proj(cfg, zxbcdt)
-    conv_in = torch.cat([xc, B, C], dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, p.conv_w, p.conv_b,
-                                        state["conv"])
     di = cfg.d_inner
     g, n = cfg.ssm_ngroups, cfg.d_state
+    z, xc, B, C, dtr = split_proj(zxbcdt, di, g * n)
+    conv_in = torch.cat([xc, B, C], dim=-1)
+    conv_out, conv_state = causal_conv(conv_in, p.conv_w, p.conv_b,
+                                       state["conv"])
     b = x.shape[0]
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     conv32 = conv_out.float()
@@ -164,8 +148,8 @@ def mamba2_decode(p: Mamba2, cfg: ModelConfig, x, state):
         .repeat_interleave(h // g, dim=1)                  # [B,H,N]
     Ch = split_dim(conv32[:, 0, di + g * n:], -1, (g, n)) \
         .repeat_interleave(h // g, dim=1)
-    dt, A = _dt_and_a(p, dtr)
-    dt = dt[:, 0]                                          # [B,H]
+    dt = dt_softplus(dtr, p.dt_bias)[:, 0]                 # [B,H]
+    A = -torch.exp(p.A_log.float())
     decay = torch.exp(dt * A[None, :])
     s = state["ssm"] * decay[..., None, None] + torch.einsum(
         "bhn,bh,bhp->bhnp", Bh, dt, xh)

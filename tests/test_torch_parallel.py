@@ -15,9 +15,9 @@ Tolerances (float32, reduced configs):
     grad norm 1e-5 relative; gathered updated params within 1e-5 abs;
   * sharded decode logits within 1e-4 abs of the reference's
     `decode_step` (float32 sums over shards in another order); sharded
-    prefill logits (flash and SSD wrappers on local shards, their plain
-    versions on the CPU) within 1e-5 of the port's unsharded prefill and
-    1e-4 of the reference's;
+    prefill logits (flash, SSD and conv-chain wrappers on local shards,
+    their plain versions on the CPU) within 1e-5 of the port's unsharded
+    prefill and 1e-4 of the reference's;
   * masked embedding lookup: values exact, table gradient 1e-6;
   * expert-parallel MoE: 1e-5 relative and absolute (outputs reach ~100;
     the batched expert products sum in another order) against the
@@ -176,9 +176,10 @@ def test_sharded_prefill_runs_the_kernel_wrappers_on_local_shards(tmp_path):
     got = run_case(tmp_path, "prefill", arrays)
     for arch, w in want.items():
         n = cfgs[arch].n_layers
-        flash, ssd = got[f"{arch}/calls"]
+        flash, ssd, conv = got[f"{arch}/calls"]
         # every rank calls each plain version once a layer, on its shard
-        assert (flash, ssd) == ((n, 0) if arch == "smollm-135m" else (0, n))
+        assert (flash, ssd, conv) == ((n, 0, 0) if arch == "smollm-135m"
+                                      else (0, n, n))
         np.testing.assert_allclose(got[f"{arch}/sharded"],
                                    got[f"{arch}/plain"], rtol=0, atol=1e-5,
                                    err_msg=arch)

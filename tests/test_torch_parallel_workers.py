@@ -147,17 +147,18 @@ def case_decode(rank, world, a):
 
 def case_prefill(rank, world, a):
     """The sharded prefill on (2, 2) of reduced smollm (head dim 64, the
-    flash hook installed) and mamba2 (the SSD op under no_grad): each
-    kernel wrapper runs on local shards, so its plain version is called
-    on plain (local) tensors once a layer."""
+    flash hook installed) and mamba2 (the conv-chain and SSD ops under
+    no_grad): each kernel wrapper runs on local shards, so its plain
+    version is called on plain (local) tensors once a layer."""
     import dataclasses
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_conv import ops as conv_ops
     from repro_torch.models import attention, forward
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     rules = sharding.make_rules(mesh)
-    calls = {"flash": 0, "ssd": 0}
+    calls = {"flash": 0, "ssd": 0, "conv": 0}
 
     def counting(mod, name, key):
         real = getattr(mod, name)
@@ -171,6 +172,7 @@ def case_prefill(rank, world, a):
 
     counting(flash_ops, "flash_attention_ref", "flash")
     counting(ssd_ops, "ssd_chunk_scan_streaming", "ssd")
+    counting(conv_ops, "conv_chain", "conv")
     out = {}
     for arch, changes in (("smollm-135m", {"head_dim": 64}),
                           ("mamba2-2.7b", {})):
@@ -187,8 +189,7 @@ def case_prefill(rank, world, a):
             before = dict(calls)
             got = _full(fn(sharded, {"tokens": toks}))
             out[f"{arch}/calls"] = np.array(
-                [calls["flash"] - before["flash"],
-                 calls["ssd"] - before["ssd"]])
+                [calls[k] - before[k] for k in ("flash", "ssd", "conv")])
             with torch.no_grad():
                 want = forward(plain, cfg, {"tokens": torch.from_numpy(toks)},
                                logits_mode="last")
