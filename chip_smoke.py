@@ -106,6 +106,27 @@ catches its own failure.
               within 12 u s of the eager bf16 chain (CONV_BF16_ULPS);
               each timed as in phase 7, beside its bytes' bound
               (`conv_bound_ms`) and the eager chain's time
+  9c. granite granite-4.0-h-small (`portbench/configs/`'s "model"): (a)
+              flash at its attention layer, bf16 [2, 4096], 32 query on
+              8 KV heads of 128, with its softmax scale 1/128
+              (`attention_multiplier`, not 128^-0.5), against the plain
+              version at that scale within FLASH_TOL, and moved from the
+              default scale's output by over 10x that; (b) the MoE's
+              grouped products (`kernels/moe_grouped`, `torch._grouped_mm`)
+              at the benchmark's call of 8,192 tokens x top 10: x [81920,
+              4096] times w [72, 4096, 768], and [81920, 768] times [72,
+              768, 4096], one expert given no row; one launch a call,
+              against the loop over experts on float32 copies within
+              GROUPED_TOL of the output's range, the launches the
+              profiler records named as `moe_roofline.prefill` reads
+              them; (c) the model
+              at full width and depth (40 layers, 32.2B parameters, bf16,
+              random weights from a CUDA generator seeded with 0): the
+              prefill [2, 4096] with the flash hook installed launches
+              the grouped GEMM 3 times a layer (120), flash once an
+              attention layer (4, tensor-core route), the SSD op ("tc")
+              and the conv kernel once a Mamba2 layer (36), and nothing
+              else; each timed as in phase 7, beside its bound
  10. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
               weights from a CUDA generator seeded with 0): (a) the prefill
               `forward(tokens [4, 2048], logits_mode="last")` must launch
@@ -376,6 +397,24 @@ CONV_TOL = 1e-5
 CONV_BF16_ULPS = 12
 U_BF16 = 2.0 ** -8
 
+# Granite 4.0-H Small (phase 9c), as the benchmark runs it: its config,
+# its attention layer's flash call at the benchmark's call of 8,192
+# tokens, and that call's expert products.
+GRANITE_CONFIG = "portbench/configs/granite-4.0-h-small.json"
+GRANITE_FLASH = (2, 4096, 32, 8, 128, torch.bfloat16, True, "wgmma")
+GRANITE_SCALE = 1 / 128          # attention_multiplier, not 128 ** -0.5
+GRANITE_PREFILL = (2, 4096)
+GRANITE_NAME = "granite-4.0-h-small"
+# The grouped GEMM against the loop over experts on float32 copies: bf16
+# inputs and output, float32 sums (4,096 or 768 products a sum); max |err|
+# <= GROUPED_TOL * max |plain|, as tests/test_torch_families_gpu.py allows.
+GROUPED_TOL = 2e-2
+GROUPED_SOURCE = "src/repro_torch/kernels/moe_grouped/kernel.py"
+# the grouped GEMM's kernel as the profiler names it (CUTLASS's sm90
+# grouped GEMM inside PyTorch); `portbench/metrics/moe_roofline.prefill.py`
+# finds it by the same name
+GROUPED_KERNEL_NAME = "GroupProblemShape"
+
 # The families phase: every configuration the earlier phases do not
 # serve, at full width and depth (random weights from a CUDA generator
 # seeded with SEED), in the order run, with its flash launches per
@@ -558,21 +597,24 @@ def ssd_build_report(lib: Path, loaded) -> None:
 def launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
+    from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
     return {**kernel.LAUNCHES, **flash.LAUNCHES, **ssd.LAUNCHES,
-            **conv.LAUNCHES}
+            **conv.LAUNCHES, **grouped.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
+    from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
     kernel.reset_launches()
     flash.reset_launches()
     ssd.reset_launches()
     conv.reset_launches()
+    grouped.reset_launches()
 
 
 def device_times_ms(fn, n: int = N_TIMED, cold: bool = False):
@@ -1812,6 +1854,193 @@ def ssm_conv_phase(dev):
     return record
 
 
+def granite_config():
+    """granite-4.0-h-small's `ModelConfig`, from the benchmark's config
+    file as `portbench/harness.py::program` builds it."""
+    from repro_torch.configs.base import ModelConfig
+    m = json.loads((ROOT / GRANITE_CONFIG).read_text())["model"]
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in m.items()})
+
+
+def granite_flash(dev, cfg) -> dict:
+    """Phase 9c (a): flash at granite's attention layer with its scale ->
+    the numbers for the flash record."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    b, s, h, hkv, d, dtype, causal, want_route = GRANITE_FLASH
+    scale = cfg.softmax_scale
+    if scale != GRANITE_SCALE or (h, hkv, d) != (
+            cfg.n_heads, cfg.n_kv_heads, cfg.d_head):
+        raise RuntimeError(f"granite's attention: scale {scale}, heads "
+                           f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_head}")
+    q, k, v = _qkv(b, s, h, hkv, d, dtype, dev)
+    route = kernel.choose_route(q, k, v)
+    run = lambda: ops.flash_attention(q, k, v, scale=scale)  # noqa: E731
+    before = dict(kernel.LAUNCHES)
+    out = run()
+    torch.cuda.synchronize()
+    if route != want_route or kernel.LAUNCHES["flash_wgmma"] \
+            != before["flash_wgmma"] + 1:
+        raise RuntimeError(f"granite flash: route {route}, launches "
+                           f"{before} -> {kernel.LAUNCHES}")
+    tol = FLASH_TOL[dtype]
+    want = ref.flash_attention_ref(q, k, v, scale=scale)
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    err = float((out.float() - want.float()).abs().max())
+    del want
+    moved = float((out.float() - ops.flash_attention(q, k, v).float())
+                  .abs().max())
+    if not moved > 10 * tol:
+        raise RuntimeError(f"granite flash: scale {scale} moved the output "
+                           f"by {moved:.3g} from the default's, want > "
+                           f"{10 * tol:g}")
+    ms = device_times_ms(run, cold=True)
+    b_ms, by = flash_bound_ms(b, s, h, hkv, d, dtype)
+    shape = f"B={b} S={s} H={h} Hkv={hkv} D={d} bf16 causal"
+    say("granite", f"(a) flash {shape}, scale {scale:g}: route {route}, "
+        f"max abs err {err:.3g} (tol {tol:g}), {moved:.3g} from the "
+        f"default scale's output; {ms:.4f} ms cold, bound {b_ms:.4f} ms "
+        f"({by}), at {100 * b_ms / ms:.1f}% of it")
+    return dict(shape=shape, scale=scale, max_abs_err=err,
+                moved_from_default=moved, ms=ms, bound_ms=b_ms, bound_by=by)
+
+
+def granite_grouped(dev, cfg) -> dict:
+    """Phase 9c (b): the grouped expert products at the benchmark's call
+    -> the grouped product's record (gate/up's numbers, down's beside)."""
+    from repro_torch.kernels.moe_grouped import kernel, ops
+    from repro_torch.kernels.moe_grouped.ref import grouped_mm_ref
+    from repro_torch.models.moe import sort_by_expert
+    e, dm, f = cfg.n_experts, cfg.d_model, cfg.d_expert
+    rows = GRANITE_PREFILL[0] * GRANITE_PREFILL[1] * cfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.randint(0, e, (rows,), generator=gen, device=dev)
+    ids[ids == 7] = 8                               # an expert with no row
+    _, offs = sort_by_expert(ids, e)
+    record = None
+    for what, k, n in (("gate/up", dm, f), ("down", f, dm)):
+        x = torch.randn(rows, k, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        w = torch.randn(e, k, n, generator=gen, device=dev,
+                        dtype=torch.bfloat16) * 0.02
+        run = lambda: ops.grouped_mm(x, w, offs)          # noqa: E731
+        with torch.no_grad():
+            before = kernel.LAUNCHES["grouped"]
+            got = run()
+            torch.cuda.synchronize()
+            if kernel.LAUNCHES["grouped"] != before + 1:
+                raise RuntimeError(f"grouped {what}: launches {before} -> "
+                                   f"{kernel.LAUNCHES['grouped']}, want one")
+            want = grouped_mm_ref(x.float(), w.float(), offs)
+            err, top = (float((got.float() - want).abs().max()),
+                        float(want.abs().max()))
+            del got, want
+            if not err <= GROUPED_TOL * top:
+                raise RuntimeError(f"grouped {what}: max abs err {err:.4g} "
+                                   f"over {GROUPED_TOL:g} of {top:.4g}")
+            ms = device_times_ms(run, cold=True)
+            plain_ms = device_times_ms(
+                lambda: grouped_mm_ref(x, w, offs), n=5, cold=True)
+            prof, (prof_ms, _, kern_n) = profile_kernels(
+                lambda: [run() for _ in range(N_TIMED)],
+                (GROUPED_KERNEL_NAME,))
+        # the profiler may drop every launch of a burst ("not recorded");
+        # launches recorded under another name are a fault
+        if prof_ms is None and prof[4]:
+            raise RuntimeError(f"grouped {what}: no device activity named "
+                               f"{GROUPED_KERNEL_NAME!r} among "
+                               f"{sorted(prof[4])[:4]}")
+        t_ops = 2 * rows * k * n / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+        t_bytes = 2 * (rows * k + e * k * n + rows * n) \
+            / HBM_BYTES_PER_S * 1e3
+        b_ms, by = (t_ops, "operations") if t_ops >= t_bytes \
+            else (t_bytes, "bytes")
+        shape = f"[{rows}, {k}] x [{e}, {k}, {n}]"
+        say("granite", f"(b) grouped {what} {shape}: one launch, max abs "
+            f"err {err:.4g} ({err / top:.3g} of the output's range, tol "
+            f"{GROUPED_TOL:g}) against the loop on float32 copies; "
+            f"{ms:.4f} ms cold, profiler {_ms(prof_ms)} ms a launch (>= "
+            f"{kern_n} recorded as {GROUPED_KERNEL_NAME}); bound "
+            f"{b_ms:.4f} ms ({by}), at {100 * b_ms / ms:.1f}% of it; the "
+            f"loop over experts in bf16 {plain_ms:.4f} ms")
+        numbers = dict(max_abs_err=err, rel_err=err / top, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                       profiler_ms=prof_ms, shape=shape)
+        if record is None:
+            record = dict(name="moe_grouped", route="library",
+                          source=GROUPED_SOURCE, replaces=None,
+                          launches=None, library_ms=None, **numbers)
+        else:
+            record["down"] = numbers
+        del x, w
+        torch.cuda.empty_cache()
+    return record
+
+
+def granite_prefill(dev, cfg) -> dict:
+    """Phase 9c (c): the model at full width and depth, one prefill with
+    the flash hook -> its launch counts."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention, forward, init_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, torch.Generator(dev).manual_seed(SEED),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, GRANITE_PREFILL)).to(dev)
+    n_attn = cfg.layer_types.count("attention")
+    n_mamba = cfg.n_layers - n_attn
+
+    def prefill():
+        return forward(model, cfg, {"tokens": tokens}, logits_mode="last")
+
+    with torch.no_grad():
+        flash_ops.install()
+        try:
+            reset_launch_counts()
+            logits = prefill()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = {**{k: 0 for k in launches}, "flash": n_attn,
+                    "flash_wgmma": n_attn, "ssd": n_mamba,
+                    "ssd_tc": n_mamba, "fused": n_mamba,
+                    "grouped": 3 * cfg.n_layers}
+            if launches != want:
+                raise RuntimeError(f"granite prefill launches {launches}, "
+                                   f"want {want}")
+            if tuple(logits.shape) != (GRANITE_PREFILL[0], 1, cfg.vocab) \
+                    or not torch.isfinite(logits).all():
+                raise RuntimeError(f"granite prefill: bad logits "
+                                   f"{tuple(logits.shape)}")
+            ms = device_times_ms(prefill, n=3)
+        finally:
+            attention.set_flash_impl(None)
+    peak = torch.cuda.max_memory_allocated()
+    say("granite", f"(c) {cfg.name}: {n_params / 1e9:.3f}B params "
+        f"({cfg.param_dtype}), {n_mamba} Mamba2 + {n_attn} attention "
+        f"layers, each with a {cfg.n_experts}-expert top-{cfg.top_k} MoE; "
+        f"init {init_s:.2f} s; prefill {list(GRANITE_PREFILL)}: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {ms:.2f} ms "
+        f"(events); peak {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def granite_phase(dev) -> tuple:
+    """Phase 9c -> (the scaled flash case's numbers, the grouped product's
+    record, one prefill's launch counts)."""
+    cfg = granite_config()
+    flash = granite_flash(dev, cfg)
+    torch.cuda.empty_cache()
+    grouped = granite_grouped(dev, cfg)
+    return flash, grouped, granite_prefill(dev, cfg)
+
+
 def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
     """A Mamba2 model (ssm or hybrid family) at the size `cfg` gives, with
     the flash hook installed: the prefill [prefill_b, PREFILL_S] must
@@ -2735,14 +2964,20 @@ def main() -> int:
     from repro_torch.configs import get_config
     records["ssd_scan"] = ssd_phase(dev)
     records["ssm_conv"] = ssm_conv_phase(dev)
+    granite_flash_case, records["moe_grouped"], granite = granite_phase(dev)
+    records["flash_attention"]["granite_scaled"] = granite_flash_case
+    records["moe_grouped"].update(
+        launches=granite["grouped"],
+        launches_by_path={GRANITE_NAME: granite["grouped"]})
     ssm = ssm_serve_phase(dev, get_config(SSM_ARCH), "ssm", PREFILL_B)
     hybrid = ssm_serve_phase(dev, get_config(HYBRID_ARCH), "hybrid",
                              HYBRID_PREFILL_B, engine=False)
     records["ssd_scan"]["launches"] = ssm["ssd"]
     records["ssm_conv"].update(launches=ssm["fused"], launches_by_path={
-        SSM_ARCH: ssm["fused"], HYBRID_ARCH: hybrid["fused"]})
+        SSM_ARCH: ssm["fused"], HYBRID_ARCH: hybrid["fused"],
+        GRANITE_NAME: granite["fused"]})
     by_path = {SERVE_ARCH: records["flash_attention"]["launches"],
-               HYBRID_ARCH: 0}
+               HYBRID_ARCH: 0, GRANITE_NAME: granite["flash"]}
     for arch in FAMILY_FLASH:
         by_path[arch] = family_phase(dev, arch)
     records["flash_attention"]["launches_by_path"] = by_path

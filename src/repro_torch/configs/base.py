@@ -5,13 +5,25 @@ imports nothing of that package, so it keeps its own."""
 from __future__ import annotations
 
 import dataclasses
+import math
+import struct
 from typing import Optional, Tuple
+
+
+def inv_sqrt_f32(n: int) -> float:
+    """1/sqrt(n) as float32 arithmetic gives it, `1.0f / sqrtf(n)`: the
+    square root and the quotient each rounded to float32 (double holds
+    both exactly enough that rounding twice changes neither).  The
+    default softmax scale, the same float on every attention path."""
+    def f32(x: float) -> float:
+        return struct.unpack("f", struct.pack("f", x))[0]
+    return f32(1.0 / f32(math.sqrt(n)))
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    family: str        # dense | moe | ssm | hybrid | hybrid_moe | encdec | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -40,7 +52,8 @@ class ModelConfig:
     d_expert: int = 0
     first_dense_layers: int = 0      # leading dense layers (DeepSeek: 1)
     d_ff_dense: int = 0              # d_ff of those dense layers
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25    # 0 = dropless (grouped expert products)
+    d_shared: int = 0                # shared expert width (0: d_expert * n)
     # SSM (Mamba2 / SSD)
     d_state: int = 0
     ssm_heads: int = 0
@@ -51,6 +64,15 @@ class ModelConfig:
     chunk: int = 128
     # hybrid (Zamba2): shared attention block applied every k SSM layers
     shared_attn_every: int = 0
+    # hybrid_moe (Granite 4.0-H): "mamba" or "attention" by layer, each
+    # followed by an MoE
+    layer_types: Tuple[str, ...] = ()
+    # Granite's multipliers (1.0 changes nothing); attention_multiplier 0
+    # means head_dim ** -0.5 (`softmax_scale`)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
     # encoder-decoder (Whisper)
     enc_layers: int = 0
     dec_layers: int = 0
@@ -76,6 +98,21 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def softmax_scale(self) -> float:
+        """GQA's softmax scale: `attention_multiplier`, else 1/sqrt(d_head)
+        in float32 (`inv_sqrt_f32`)."""
+        return self.attention_multiplier or inv_sqrt_f32(self.d_head)
+
+    @property
+    def dropless(self) -> bool:
+        """Routed experts take every token (no capacity, nothing dropped)."""
+        return self.capacity_factor == 0
+
+    @property
+    def d_shared_expert(self) -> int:
+        return self.d_shared or self.d_expert * self.n_shared_experts
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks)."""
@@ -115,6 +152,12 @@ class ModelConfig:
         elif self.family == "hybrid":
             total += self.n_layers * ssm_params()
             total += attn_params() + mlp_params(self.d_ff)  # shared block
+        elif self.family == "hybrid_moe":
+            moe = self.n_experts * mlp_params(self.d_expert) \
+                + mlp_params(self.d_shared_expert) + d * self.n_experts
+            total += sum(attn_params() if kind == "attention"
+                         else ssm_params() for kind in self.layer_types)
+            total += self.n_layers * moe
         elif self.family == "moe":
             dense = self.first_dense_layers
             moe_layers = self.n_layers - dense
@@ -136,7 +179,7 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Activated params per token (MoE: top_k + shared only)."""
-        if self.family != "moe":
+        if self.family not in ("moe", "hybrid_moe"):
             return self.param_count()
         full = self.param_count()
         d = self.d_model

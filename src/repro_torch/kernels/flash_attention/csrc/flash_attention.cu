@@ -197,7 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int Hkv, int causal,
-                   const long long* st, cudaStream_t stream) {
+                   const long long* st, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(D) * sizeof(float);
   // Above 48 KB of dynamic shared memory needs an opt-in, once per device
   // and instantiation: the call is not free, so it stays off the hot path.
@@ -217,20 +217,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, H / Hkv, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      1.0f / sqrtf(static_cast<float>(D)), causal);
+      scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* o, int B, int S, int H, int Hkv, int causal,
-                     const long long* st, cudaStream_t stream) {
+                     const long long* st, float scale, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 96: return launch<T, 96>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, B, S, H, Hkv, causal, st, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, S, H, Hkv, causal, st, scale, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, o, B, S, H, Hkv, causal, st, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+      return launch<T, 128>(q, k, v, o, B, S, H, Hkv, causal, st, scale,
+                            stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -686,7 +690,7 @@ CUresult encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 // driver refused.
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int Hkv, int causal, const long long* st,
+           int H, int Hkv, int causal, const long long* st, float scale,
            cudaStream_t stream) {
   static_assert(BQ == BK, "one q tile per key tile on the diagonal");
   const EncodeTiled enc = encode_tiled();
@@ -711,8 +715,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     if (dev < 64) opted_in[dev] = true;
   }
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  const float scale_log2 =   // the real D, not the padded width
-      1.4426950408889634f / sqrtf(static_cast<float>(D));
+  const float scale_log2 = 1.4426950408889634f * scale;
   flash_fwd_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, H / Hkv, scale_log2,
       causal);
@@ -738,7 +741,8 @@ extern "C" int flash_attention_tc_smem_bytes(int D) {
 // dtype: 0 float32, 1 bfloat16.  route: 0 the SIMT kernel (any dtype, D
 // 64/80/96/128), 1 the tensor-core kernel (bfloat16, D 64/80/96/128,
 // pointers and strides 16-byte aligned); the caller chooses, and a route
-// that does not take the input is an error, never a fallback.
+// that does not take the input is an error, never a fallback.  scale: the
+// softmax's scale of q k^T, positive (1/sqrt(D) is the caller's to give).
 // -> cudaGetLastError() after the launch, or minus a CUresult (tensor map).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
@@ -748,28 +752,32 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    long long ksb, long long kss,
                                    long long ksh, long long vsb,
                                    long long vss, long long vsh,
-                                   void* stream) {
+                                   float scale, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || (S + BQ - 1) / BQ > 65535 ||
-      Hkv <= 0 || H % Hkv != 0)
+      Hkv <= 0 || H % Hkv != 0 || !(scale > 0.0f))
     return cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
     switch (D) {
-      case 64: return tc::launch<64>(q, k, v, o, B, S, H, Hkv, causal, st, s);
-      case 80: return tc::launch<80>(q, k, v, o, B, S, H, Hkv, causal, st, s);
-      case 96: return tc::launch<96>(q, k, v, o, B, S, H, Hkv, causal, st, s);
+      case 64:
+        return tc::launch<64>(q, k, v, o, B, S, H, Hkv, causal, st, scale, s);
+      case 80:
+        return tc::launch<80>(q, k, v, o, B, S, H, Hkv, causal, st, scale, s);
+      case 96:
+        return tc::launch<96>(q, k, v, o, B, S, H, Hkv, causal, st, scale, s);
       case 128:
-        return tc::launch<128>(q, k, v, o, B, S, H, Hkv, causal, st, s);
+        return tc::launch<128>(q, k, v, o, B, S, H, Hkv, causal, st, scale,
+                               s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, B, S, H, Hkv, causal, st, s);
+    return dispatch<float>(D, q, k, v, o, B, S, H, Hkv, causal, st, scale, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, H, Hkv, causal, st,
-                                   s);
+                                   scale, s);
   return cudaErrorInvalidValue;
 }

@@ -27,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from ...configs.base import inv_sqrt_f32
 from ..build import SM90A, CudaLibrary
 
 SUPPORTED_D = (64, 80, 96, 128)
@@ -46,7 +47,8 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 8 + [ll] * 9 + [p]
+    lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 8 + [ll] * 9 \
+        + [ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_tc_smem_bytes.argtypes = [i]
     lib.flash_attention_tc_smem_bytes.restype = i
@@ -105,11 +107,17 @@ def choose_route(q, k, v) -> str:
     return "wgmma"
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        scale: float = None):
     """q [B,S,H,D], k/v [B,S,Hkv,D] CUDA tensors -> o [B,S,H,D], a new
-    contiguous tensor of q's type, from the kernel `choose_route` names.
-    Forward only: raises when autograd would need a gradient through it."""
+    contiguous tensor of q's type, from the kernel `choose_route` names,
+    the softmax taken of the logits times `scale` (None: 1/sqrt(D) in
+    float32, `inv_sqrt_f32`).  Forward only: raises when autograd would
+    need a gradient through it."""
     check_inputs(q, k, v)
+    scale = inv_sqrt_f32(q.shape[3]) if scale is None else float(scale)
+    if not scale > 0:
+        raise ValueError(f"the softmax scale must be positive, got {scale}")
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -126,7 +134,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
         rc = LIBRARY.load().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
             k.shape[2], d, DTYPE_CODES[q.dtype], int(causal), ROUTES[route],
-            *strides, stream)
+            *strides, scale, stream)
     if rc < 0:
         raise RuntimeError(f"flash_attention ({route}): the driver refused "
                            f"a tensor map: CUresult {-rc}")

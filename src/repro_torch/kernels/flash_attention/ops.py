@@ -19,19 +19,20 @@ from . import kernel
 from .ref import flash_attention_ref
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: [B,S,H,D]; k/v: [B,S,Hkv,D] -> [B,S,H,D]."""
+def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
+    """q: [B,S,H,D]; k/v: [B,S,Hkv,D] -> [B,S,H,D]; softmax scale `scale`
+    (None: D^-0.5)."""
     if isinstance(q, DTensor):
         return attention_on_local_shards(flash_attention, q, k, v,
-                                         causal=causal)
+                                         causal=causal, scale=scale)
     kernel.check_inputs(q, k, v)
     if q.device.type in ("cpu", "meta"):
-        return flash_attention_ref(q, k, v, causal=causal)
-    return kernel.flash_attention_fwd(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return kernel.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
 
 
-def _impl(q, k, v):
-    return flash_attention(q, k, v, causal=True)
+def _impl(q, k, v, *, scale: float = None):
+    return flash_attention(q, k, v, causal=True, scale=scale)
 
 
 def install():

@@ -43,6 +43,8 @@ NEG_INF = -1e30
 
 
 def set_flash_impl(fn):
+    """`fn(q, k, v, *, scale)` takes causal full attention from `sdpa`
+    (`scale` None: D^-0.5); None removes it."""
     global _FLASH_IMPL
     _FLASH_IMPL = fn
 
@@ -52,10 +54,11 @@ def set_blocked_threshold(n: int):
     BLOCKED_ATTN_THRESHOLD = n
 
 
-def sdpa_blocked(q, k, v, *, causal=True, window=0, k_block: int = None):
+def sdpa_blocked(q, k, v, *, causal=True, window=0, k_block: int = None,
+                 scale: float = None):
     """Online-softmax attention over K/V blocks (the flash pattern as a
     Python loop over blocks).  q: [B,Sq,H,D] matched to k/v [B,Sk,Hkv,D] by
-    GQA grouping.  fp32 accumulation."""
+    GQA grouping.  fp32 accumulation; softmax scale `scale` (None: D^-0.5)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -63,7 +66,7 @@ def sdpa_blocked(q, k, v, *, causal=True, window=0, k_block: int = None):
     assert sk % kb == 0, (sk, kb)
     group = h // hkv
     qf = split_dim(q, 2, (hkv, group)).float()
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     kr = split_dim(k, 1, (sk // kb, kb)).float()
     vr = split_dim(v, 1, (sk // kb, kb)).float()
     qi = torch.arange(sq, device=q.device)
@@ -106,25 +109,28 @@ def _mask_bias(q_len, kv_len, causal, window, q_offset=0,
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
-def sdpa(q, k, v, *, causal=True, window=0, q_offset=0):
-    """q/k: [B,S,H*,Dqk], v: [B,Sk,Hkv,Dv] -> [B,Sq,H,Dv].  fp32 softmax."""
+def sdpa(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
+    """q/k: [B,S,H*,Dqk], v: [B,Sk,Hkv,Dv] -> [B,Sq,H,Dv].  fp32 softmax of
+    the logits times `scale` (None: Dqk^-0.5), on every path."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     dv = v.shape[-1]
     if _FLASH_IMPL is not None and causal and window == 0 \
             and sq == k.shape[1] and d == dv:
-        return _FLASH_IMPL(q, k, v)
+        return _FLASH_IMPL(q, k, v, scale=scale)
     if isinstance(q, DTensor):
         # per rank on local shards, differentiable
         return attention_on_local_shards(sdpa, q, k, v, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset,
+                                         scale=scale)
     if k.shape[1] >= BLOCKED_ATTN_THRESHOLD and q_offset == 0 \
             and sq == k.shape[1]:
-        return sdpa_blocked(q, k, v, causal=causal, window=window)
+        return sdpa_blocked(q, k, v, causal=causal, window=window,
+                            scale=scale)
     group = h // hkv
     qg = split_dim(q, 2, (hkv, group))
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) * (d ** -0.5)
+                          k.float()) * (d ** -0.5 if scale is None else scale)
     bias = _mask_bias(sq, k.shape[1], causal, window, q_offset,
                       device=q.device)
     if bias is not None:
@@ -178,7 +184,8 @@ def gqa_forward(p: GQA, cfg: ModelConfig, x, positions, *, causal=True,
     with tracer.span("attn.rope"):
         q, k = _rope_qk(cfg, q, k, positions)
     with tracer.span("attn.core"):
-        out = sdpa(q, k, v, causal=causal, window=window)
+        out = sdpa(q, k, v, causal=causal, window=window,
+                   scale=cfg.softmax_scale)
     return shard(merge_heads(out, p.wo),
                  "batch", "seq", "embed")
 
@@ -266,7 +273,7 @@ def gqa_decode(p: GQA, cfg: ModelConfig, x, cache, pos: int, *,
     group = cfg.n_heads // hkv
     qg = split_dim(q, 2, (hkv, group))
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) * (cfg.d_head ** -0.5)
+                          k.float()) * cfg.softmax_scale
     logits = logits.masked_fill(~valid, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())

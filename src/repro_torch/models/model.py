@@ -2,7 +2,11 @@
 decoder-only LM (`dense`, `moe`, `vlm`; GQA or MLA), the `ssm` family
 (Mamba2), the `hybrid` family (Zamba2: Mamba2 layers with one shared GQA
 block after every `shared_attn_every` of them) and `encdec` (Whisper: an
-encoder, then a decoder with cross-attention).
+encoder, then a decoder with cross-attention); and the port's own
+`hybrid_moe` family (Granite 4.0-H, configured by the benchmark rather
+than the registry): Mamba2 and GQA layers in one stack by `layer_types`,
+each followed by a dropless MoE with a shared expert, the residual
+branches scaled by `residual_multiplier`.
 
 The port of the JAX package's `models/model.py`.  Parameters live in a
 `Model` (`nn.Module`) whose attribute names are the reference's param-tree
@@ -35,7 +39,9 @@ from . import ssm as ssm_mod
 from .layers import (Norm, ParamInit, dt, embedding_lookup, fold_tokens,
                      norm, shard, sinusoidal_positions)
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "hybrid_moe", "encdec")
+#: the mixers of a `hybrid_moe` stack, by `layer_types` entry
+HYBRID_MIXERS = ("mamba", "attention")
 _aten = torch.ops.aten
 _MM = (_aten.mm.default, _aten.addmm.default)
 _BMM = (_aten.bmm.default, _aten.baddbmm.default)
@@ -109,13 +115,31 @@ class MambaBlock(nn.Module):
         self.ssm = ssm_mod.init_mamba2(init, cfg)
 
 
+class HybridBlock(nn.Module):
+    """One layer of the `hybrid_moe` family: `ln1`, its mixer (`ssm`, a
+    Mamba2, where `kind` is "mamba"; `attn`, a GQA, where "attention"),
+    `ln2`, and `mlp`, routed experts with their shared expert."""
+
+    def __init__(self, init: ParamInit, cfg: ModelConfig, kind: str):
+        super().__init__()
+        if kind not in HYBRID_MIXERS:
+            raise ValueError(f"layer type {kind!r} not in {HYBRID_MIXERS}")
+        self.ln1 = Norm(init, cfg.d_model, cfg.norm)
+        if kind == "mamba":
+            self.ssm = ssm_mod.init_mamba2(init, cfg)
+        else:
+            self.attn = attn.init_gqa(init, cfg)
+        self.ln2 = Norm(init, cfg.d_model, cfg.norm)
+        self.mlp = moe_mod.init_moe(init, cfg)
+
+
 class Model(nn.Module):
     """`embed` [V, d], `lm_head` [d, V] (untied only), `ln_f`, and by
     family: `dense_layers` (when `first_dense_layers`) and `layers`
     (`Block`s; routed experts in the `moe` family), `layers` of
-    `MambaBlock`s (ssm, hybrid) and `shared_block` (hybrid), or
-    `enc_layers`, `dec_layers` (with cross-attention) and `ln_enc`
-    (encdec)."""
+    `MambaBlock`s (ssm, hybrid) and `shared_block` (hybrid), `layers` of
+    `HybridBlock`s (hybrid_moe), or `enc_layers`, `dec_layers` (with
+    cross-attention) and `ln_enc` (encdec)."""
 
     def __init__(self, cfg: ModelConfig, init: ParamInit):
         super().__init__()
@@ -133,6 +157,12 @@ class Model(nn.Module):
                                         for _ in range(cfg.n_layers))
             if cfg.family == "hybrid":
                 self.shared_block = Block(init, cfg, cfg.d_ff)
+        elif cfg.family == "hybrid_moe":
+            if len(cfg.layer_types) != cfg.n_layers:
+                raise ValueError(f"{cfg.name}: {len(cfg.layer_types)} "
+                                 f"layer_types for {cfg.n_layers} layers")
+            self.layers = nn.ModuleList(HybridBlock(init, cfg, kind)
+                                        for kind in cfg.layer_types)
         elif cfg.family == "encdec":
             self.enc_layers = nn.ModuleList(Block(init, cfg, cfg.d_ff)
                                             for _ in range(cfg.enc_layers))
@@ -208,6 +238,35 @@ def _mamba_block_fwd(p: MambaBlock, cfg: ModelConfig, x, tr=NULL_TRACER):
     return x + y
 
 
+def _hybrid_block_fwd(p: HybridBlock, cfg: ModelConfig, x, positions,
+                      tr=NULL_TRACER):
+    """One `hybrid_moe` layer: x + r mixer(norm(x)), then + r moe(norm(x)),
+    r the residual multiplier."""
+    r = cfg.residual_multiplier
+    with tr.span("norm"):
+        h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
+    if hasattr(p, "ssm"):
+        with tr.span("ssm"):
+            a = ssm_mod.mamba2_forward(p.ssm, cfg, h, tracer=tr)
+    else:
+        with tr.span("attn"):
+            a = attn.gqa_forward(p.attn, cfg, h, positions,
+                                 window=cfg.sliding_window, tracer=tr)
+    x = x + a * r
+    with tr.span("norm"):
+        h = norm(x, p.ln2, cfg.norm, cfg.norm_eps)
+    with tr.span("mlp"):
+        y = moe_mod.moe_mlp(p.mlp, cfg, h, tracer=tr)
+    return x + y * r
+
+
+def _scale_logits(cfg: ModelConfig, logits):
+    """Logits divided by `logits_scaling` (Granite's), where it is not 1."""
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
+
+
 def _logits(params: Model, cfg: ModelConfig, x, logits_mode: str,
             tr=NULL_TRACER):
     with tr.span("norm"):
@@ -218,7 +277,8 @@ def _logits(params: Model, cfg: ModelConfig, x, logits_mode: str,
         if logits_mode == "last":
             x = x[:, -1:]
         head = params.head(x.dtype)
-        return torch.einsum("bsd,dv->bsv", fold_tokens(x, head), head)
+        return _scale_logits(cfg, torch.einsum(
+            "bsd,dv->bsv", fold_tokens(x, head), head))
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -258,6 +318,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
                 tokens = torch.as_tensor(batch["tokens"], device=dev)
                 b, s = tokens.shape
                 x = embedding_lookup(params.embed, tokens).to(cdt)
+                if cfg.embedding_multiplier != 1.0:
+                    x = x * cfg.embedding_multiplier
                 positions = torch.arange(s, device=dev)[None, :].expand(b, s)
                 if cfg.rope == "mrope":
                     positions = positions[None].expand(3, b, s)
@@ -279,6 +341,11 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
                     x = _attn_block_fwd(params.shared_block, cfg, x,
                                         positions, moe=False,
                                         window=cfg.sliding_window, tr=tr)
+        elif cfg.family == "hybrid_moe":
+            hybrid = _remat(_hybrid_block_fwd, remat)
+            for i, blk in enumerate(params.layers):
+                with tr.span("model.block", layer=i):
+                    x = hybrid(blk, cfg, x, positions, tr)
         else:
             n_dense = cfg.first_dense_layers
             if n_dense:
@@ -350,7 +417,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     kv_lora] and k_rope [L, B, max_len, rope]; for the ssm and hybrid
     families `layers` holds conv [L, B, K-1, conv_dim] (compute dtype) and
     ssm [L, B, H, N, P] (float32), and the hybrid's `shared` k/v
-    [n_groups, ...]; encdec's `dec` k/v [dec_layers, ...] and `enc_out`
+    [n_groups, ...]; hybrid_moe's `ssm` (conv, ssm) [n_mamba, ...] and
+    `attn` k/v [n_attention, ...], layer i's at `hybrid_slots(cfg)[i]` of
+    its kind; encdec's `dec` k/v [dec_layers, ...] and `enc_out`
     [B, max_len, d] of zeros (nothing fills it, as in the reference)."""
     dev = as_device(device)
     cdt = dt(cfg.compute_dtype)
@@ -368,6 +437,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if cfg.family == "hybrid":
             cache["shared"] = stack(gqa, cfg.n_layers // cfg.shared_attn_every)
         return cache
+    if cfg.family == "hybrid_moe":
+        n_attn = cfg.layer_types.count("attention")
+        return {"ssm": stack(lambda: ssm_mod.mamba2_init_state(
+                    cfg, batch, cdt, dev), cfg.n_layers - n_attn),
+                "attn": stack(gqa, n_attn)}
     if cfg.family == "encdec":
         return {"dec": stack(gqa, cfg.dec_layers),
                 "enc_out": torch.zeros((batch, max_len, cfg.d_model),
@@ -401,6 +475,8 @@ def cache_specs(cfg: ModelConfig):
         return {"layers": ssm}
     if cfg.family == "hybrid":
         return {"layers": ssm, "shared": gqa}
+    if cfg.family == "hybrid_moe":
+        return {"ssm": ssm, "attn": gqa}
     if cfg.family == "encdec":
         return {"dec": gqa,
                 "enc_out": ("batch", "kv_seq", "embed")}
@@ -426,6 +502,35 @@ def _attn_block_decode(p: Block, cfg: ModelConfig, x, cache, pos,
     return x + moe_mod.dense_mlp(p.mlp, cfg, h), cache
 
 
+def hybrid_slots(cfg: ModelConfig):
+    """Each `hybrid_moe` layer's index into its kind's stacked cache (the
+    Mamba2 layers before it, or the attention layers before it)."""
+    seen = {kind: 0 for kind in HYBRID_MIXERS}
+    out = []
+    for kind in cfg.layer_types:
+        out.append(seen[kind])
+        seen[kind] += 1
+    return out
+
+
+def _hybrid_block_decode(p: HybridBlock, cfg: ModelConfig, x, cache,
+                         slot: int, pos: int):
+    """One `hybrid_moe` layer's decode step: its Mamba2 state (conv, ssm)
+    or its k/v at `slot` of its kind, written in place."""
+    r = cfg.residual_multiplier
+    h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
+    if hasattr(p, "ssm"):
+        state = {k: v[slot] for k, v in cache["ssm"].items()}
+        a, _ = ssm_mod.mamba2_decode(p.ssm, cfg, h, state)
+    else:
+        kv = {k: v[slot] for k, v in cache["attn"].items()}
+        a, _ = attn.gqa_decode(p.attn, cfg, h, kv, pos,
+                               window=cfg.sliding_window)
+    x = x + a * r
+    h = norm(x, p.ln2, cfg.norm, cfg.norm_eps)
+    return x + moe_mod.moe_mlp(p.mlp, cfg, h) * r
+
+
 def _ssm_block_decode(p: MambaBlock, cfg: ModelConfig, x, state):
     h = norm(x, p.ln1, cfg.norm, cfg.norm_eps)
     y, state = ssm_mod.mamba2_decode(p.ssm, cfg, h, state)
@@ -442,6 +547,8 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
     cdt = dt(cfg.compute_dtype)
     token = torch.as_tensor(token, device=params.embed.device)
     x = embedding_lookup(params.embed, token)[:, None, :].to(cdt)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     x = shard(x, "batch", None, "embed")
 
     def layer(stacked, i):
@@ -466,6 +573,9 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
             x = run_ssm(params.layers[gi * k:(gi + 1) * k], gi * k, x)
             x, _ = _attn_block_decode(params.shared_block, cfg, x,
                                       layer(cache["shared"], gi), pos)
+    elif cfg.family == "hybrid_moe":
+        for blk, slot in zip(params.layers, hybrid_slots(cfg)):
+            x = _hybrid_block_decode(blk, cfg, x, cache, slot, pos)
     elif cfg.family == "encdec":
         x = run(params.dec_layers, cache["dec"], cfg, x,
                 enc_out=cache["enc_out"])
@@ -477,7 +587,7 @@ def decode_step(params: Model, cfg: ModelConfig, cache, token, pos: int, *,
         x = run(params.layers, cache["layers"], cfg, x)
     x = norm(x, params.ln_f, cfg.norm, cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params.head(cdt))[:, 0]
-    return logits, cache
+    return _scale_logits(cfg, logits), cache
 
 
 # ==========================================================================

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN: top-k token-choice routing with fixed capacity.
+"""Mixture-of-Experts FFN: top-k token-choice routing, with fixed capacity
+or dropless.
 
 The port of the JAX package's `models/moe.py`.  Dispatch is scatter-based
 (sort-free): positions within each expert's buffer come from an exclusive
@@ -9,14 +10,25 @@ The batched expert products are plain `einsum`s, as the reference's are
 expert-parallel hook (`set_moe_ep_impl`: local dispatch and an
 all-to-all over `model`); on DTensors the global path routes, dispatches
 and combines on replicated values (`layers.replicated_call`).
+
+A dropless configuration (`capacity_factor` 0, `cfg.dropless`; the port's
+own, for Granite 4.0-H) takes `_moe_mlp_dropless` instead: the T*k
+assignments sorted by expert on the device, every token's rows gathered,
+the experts' products as grouped products over the per-expert row offsets
+(`kernels/moe_grouped`), the rows weighted by their gates and summed back
+a token.  No capacity and no host sync; it runs on one device (DTensors
+raise).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..kernels.moe_grouped import ops as grouped_ops
+from ..obs.trace import NULL_TRACER
 from .layers import (ParamInit, activate, fold_tokens, replicated_call,
                      shard)
 
@@ -49,7 +61,8 @@ def dense_mlp(p: DenseMLP, cfg: ModelConfig, x, d_ff=None):
 class MoE(nn.Module):
     """`router` [d, E] (std 0.02), `w_gate`/`w_up` [E, d, f] (`w_up` for
     SwiGLU only), `w_down` [E, f, d], and `shared`, a `DenseMLP` of width
-    `d_expert * n_shared_experts` when the config has shared experts."""
+    `cfg.d_shared_expert` (`d_shared`, else `d_expert * n_shared_experts`)
+    when the config has shared experts."""
 
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()
@@ -63,8 +76,7 @@ class MoE(nn.Module):
             self.w_up = init.dense(e, d, f, axes=("experts", None, None))
         self.w_down = init.dense(e, f, d, axes=("experts", None, None))
         if cfg.n_shared_experts:
-            self.shared = DenseMLP(init, cfg,
-                                   cfg.d_expert * cfg.n_shared_experts)
+            self.shared = DenseMLP(init, cfg, cfg.d_shared_expert)
 
 
 def init_moe(init: ParamInit, cfg: ModelConfig) -> MoE:
@@ -81,8 +93,12 @@ def set_moe_ep_impl(fn):
     _MOE_EP_IMPL = fn
 
 
-def moe_mlp(p: MoE, cfg: ModelConfig, x):
-    """x: [B,S,D] -> [B,S,D]."""
+def moe_mlp(p: MoE, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
+    """x: [B,S,D] -> [B,S,D].  `tracer` records the dropless path's spans
+    "moe.route", "moe.dispatch", "moe.experts", "moe.combine" and
+    "moe.shared"."""
+    if cfg.dropless:
+        return _moe_mlp_dropless(p, cfg, x, tracer)
     if _MOE_EP_IMPL is not None:
         y = _MOE_EP_IMPL(p, cfg, x)
         if y is not None:
@@ -173,6 +189,55 @@ def _moe_mlp_global(p: MoE, cfg: ModelConfig, x):
     if cfg.n_shared_experts:
         y = y + dense_mlp(p.shared, cfg, x)
     return y
+
+
+def sort_by_expert(flat_e, n_experts: int):
+    """Assignments' expert ids [T*k] -> (order [T*k], the assignments
+    sorted by expert, stably; offs [E] int32, the end of each expert's
+    rows in that order), all on the device: no host sync."""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    experts = torch.arange(n_experts, device=flat_e.device,
+                           dtype=sorted_e.dtype)
+    offs = torch.searchsorted(sorted_e, experts, right=True)
+    return order, offs.to(torch.int32)
+
+
+def _moe_mlp_dropless(p: MoE, cfg: ModelConfig, x, tr=NULL_TRACER):
+    """Every token through its top-k experts: route, sort the T*k
+    assignments by expert, gather their rows, the experts' gate/up and
+    down products grouped over the per-expert offsets, then a token's k
+    rows summed by their gates in one batched product of the activations'
+    type (the gates rounded to it: bf16 on the card, where the plain
+    reference weights in float32)."""
+    if isinstance(x, DTensor) or isinstance(p.router, DTensor):
+        raise NotImplementedError(
+            f"{cfg.name}: the dropless MoE runs on one device; sharded "
+            f"(DTensor) inputs or experts are not supported")
+    b, s, d = x.shape
+    t, k = b * s, cfg.top_k
+    xt = x.reshape(t, d)
+    with tr.span("moe.route"):
+        _, top_p, top_i = _route(xt, p.router, cfg)
+    with tr.span("moe.dispatch"):
+        order, offs = sort_by_expert(top_i.reshape(-1), cfg.n_experts)
+        rows = xt.index_select(0, order // k)                 # [T*k, d]
+    with tr.span("moe.experts"):
+        g = grouped_ops.grouped_mm(rows, p.w_gate, offs)
+        up = grouped_ops.grouped_mm(rows, p.w_up, offs) \
+            if cfg.act == "swiglu" else None
+        out = grouped_ops.grouped_mm(activate(g, up, cfg.act), p.w_down,
+                                     offs)
+    with tr.span("moe.combine"):
+        # back to token order by the inverse permutation (a gather), then
+        # each token's k rows summed by their gates in one batched product
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        y = out.index_select(0, inv).view(t, k, d)
+        y = torch.bmm(top_p.to(y.dtype)[:, None, :], y)[:, 0]
+    if cfg.n_shared_experts:
+        with tr.span("moe.shared"):
+            y = y + dense_mlp(p.shared, cfg, x).reshape(t, d)
+    return y.reshape(b, s, d)
 
 
 def aux_load_balance_loss(p: MoE, cfg: ModelConfig, x):

@@ -65,14 +65,17 @@ PHASES = DRIVER_PHASES + ("serve.tick",)
 #: The spans of the model's prefill `forward` (`models/`), outermost
 #: first: the call, the embedding, each layer block (its residual adds as
 #: self time), the residual stream's norms, attention (the projections as
-#: self time), its RoPE and its core (flash or the plain path), the MLP,
-#: the Mamba2 layer (in/out projections as self time), its conv chain
+#: self time), its RoPE and its core (flash or the plain path), the MLP
+#: (a dropless MoE's router, its sort and gather of the rows, the grouped
+#: expert products, the weighted sum back a token, and its shared expert
+#: inside it), the Mamba2 layer (in/out projections as self time), its conv chain
 #: (split through the conv, the float32 views and dt's softplus), its SSD
 #: scan and its gate chain (the D skip, the cast, the gate and the RMS
 #: norm), and the head (the last-position slice, the cast and the GEMM).
 MODEL_SPANS = ("model.forward", "model.embed", "model.block", "norm",
-               "attn", "attn.rope", "attn.core", "mlp", "ssm", "ssm.conv",
-               "ssm.scan", "ssm.gate", "model.head")
+               "attn", "attn.rope", "attn.core", "mlp", "moe.route",
+               "moe.dispatch", "moe.experts", "moe.combine", "moe.shared",
+               "ssm", "ssm.conv", "ssm.scan", "ssm.gate", "model.head")
 
 # ---------------------------------------------------------------------------
 # span records

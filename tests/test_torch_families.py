@@ -436,7 +436,8 @@ def test_forward_with_flash_matches_jax(arch):
     jax_flash_ops.install(interpret=True)
     flash_ops.install()
     impl = attention._FLASH_IMPL
-    attention.set_flash_impl(lambda *a: calls.append(1) or impl(*a))
+    attention.set_flash_impl(
+        lambda *a, **kw: calls.append(1) or impl(*a, **kw))
     try:
         want = jax_forward(pj, cj, _jnp(batch))
         with torch.no_grad():

@@ -6,6 +6,7 @@ same seeded numpy inputs.
 Tolerances as the reference's kernel tests state them
 (tests/test_kernels.py): 2e-5 in float32 (sums in another order), 2e-2 in
 bfloat16 (outputs rounded to bf16 after different fp32 sums)."""
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro_torch.configs import reduced_config
+from repro_torch.configs.base import inv_sqrt_f32
 from repro_torch.kernels.flash_attention import kernel, ops, ref
 from repro_torch.models import attention, forward, init_model
 
@@ -171,10 +173,10 @@ def test_phi3_shaped_attention_takes_the_tensor_core_route(n_kv_heads):
         0, cfg.vocab, (2, 40)))
     seen = []
 
-    def hook(q, k, v):
+    def hook(q, k, v, *, scale):
         seen.append((tuple(q.shape), tuple(k.shape),
                      kernel.choose_route(q, k, v)))
-        return ops.flash_attention(q, k, v)
+        return ops.flash_attention(q, k, v, scale=scale)
 
     with torch.no_grad():
         attention.set_flash_impl(hook)
@@ -201,8 +203,9 @@ def test_kernel_wrapper_raises_on_what_neither_route_takes(case):
 
 
 def test_c_entry_binding_matches_its_arguments():
-    """`_bind` declares the C entry's 22 arguments: 4 pointers, 8 ints
-    (the route last), 9 strides and the stream."""
+    """`_bind` declares the C entry's 23 arguments: 4 pointers, 8 ints
+    (the route last), 9 strides, the softmax scale (a float) and the
+    stream."""
     class Fn:
         argtypes = restype = None
 
@@ -212,5 +215,60 @@ def test_c_entry_binding_matches_its_arguments():
 
     lib = Lib()
     kernel._bind(lib)
-    assert len(lib.flash_attention_fwd.argtypes) == 22
+    assert len(lib.flash_attention_fwd.argtypes) == 23
+    assert lib.flash_attention_fwd.argtypes[21] is ctypes.c_float
     assert kernel.ROUTES == {"simt": 0, "wgmma": 1}
+
+
+@pytest.mark.parametrize("path", ["flash", "blocked", "plain"])
+def test_a_given_softmax_scale_reaches_every_attention_path(path):
+    """`sdpa(..., scale=s)` (Granite 4.0-H's attention_multiplier) through
+    the flash hook (the op's plain version here), the blocked path and the
+    plain path equals softmax(s q k^T) v; the default stays D^-0.5."""
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(2, 64, 4, 64, generator=g) * 3
+    k, v = torch.randn(2, 2, 64, 2, 64, generator=g)
+    kk, vv = k.repeat_interleave(2, 2), v.repeat_interleave(2, 2)
+    mask = torch.ones(64, 64, dtype=torch.bool).tril()
+
+    def want(scale):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+        w = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+        return torch.einsum("bhqk,bkhd->bqhd", w, vv)
+    before = attention.BLOCKED_ATTN_THRESHOLD
+    try:
+        if path == "flash":
+            ops.install()
+        elif path == "blocked":
+            attention.set_blocked_threshold(0)
+        got = attention.sdpa(q, k, v, scale=1 / 64)
+        default = attention.sdpa(q, k, v)
+    finally:
+        attention.set_flash_impl(None)
+        attention.set_blocked_threshold(before)
+    torch.testing.assert_close(got, want(1 / 64), rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(default, want(64 ** -0.5), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, scale=1 / 64), want(1 / 64),
+        rtol=2e-5, atol=2e-5)
+
+
+
+@pytest.mark.parametrize("d", kernel.SUPPORTED_D)
+def test_default_scale_is_one_float32_value(d):
+    """Without a given scale every path multiplies by `inv_sqrt_f32(D)`,
+    `1.0f / sqrtf(D)`; the tensor-core kernel's log2 form, log2(e) times
+    that float, equals log2(e) / sqrtf(D) at every D it takes, so the
+    launches of models at the default scale read the floats they did
+    when the launcher computed them itself.  A config's `softmax_scale`
+    is that value, or its `attention_multiplier`."""
+    one, log2e = np.float32(1), np.float32(1.4426950408889634)
+    root = np.sqrt(np.float32(d))
+    s = inv_sqrt_f32(d)
+    assert np.float32(s) == one / root and float(np.float32(s)) == s
+    assert log2e * np.float32(s) == log2e / root
+    cfg = dataclasses.replace(reduced_config("phi3-mini-3.8b"), head_dim=d)
+    assert cfg.softmax_scale == s
+    granite = dataclasses.replace(cfg, attention_multiplier=1 / 128)
+    assert granite.softmax_scale == 1 / 128

@@ -75,6 +75,26 @@ def test_kernel_matches_ref(card, b, s, h, hkv, d, dtype, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "float32"])
+def test_kernel_takes_the_scale_it_is_given(card, dtype):
+    """Granite 4.0-H's attention: D 128, 32 query heads on 8 KV heads,
+    softmax scale 1/128 (not 128^-0.5), on each route, against the plain
+    version at that scale; the default scale is 1/sqrt(D) unchanged."""
+    q, k, v = _qkv(2, 1000, 32, 8, 128, dtype, card, seed=3)
+    q = q * 4                       # logits that the scale visibly moves
+    out = ops.flash_attention(q, k, v, scale=1 / 128)
+    want = ref.flash_attention_ref(q, k, v, scale=1 / 128)
+    default = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(default.float(), ref.flash_attention_ref(
+        q, k, v).float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert (out.float() - default.float()).abs().max() > 10 * TOL[dtype]
+
+
+@pytest.mark.gpu
 def test_kernel_reads_strided_kv(card):
     """k/v as views into one packed [B,S,2*Hkv,D] tensor: the kernel reads
     them with their strides, no copy."""

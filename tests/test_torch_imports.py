@@ -60,6 +60,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.ops",
     "repro_torch.kernels.ssm_conv", "repro_torch.kernels.ssm_conv.kernel",
     "repro_torch.kernels.ssm_conv.ref", "repro_torch.kernels.ssm_conv.ops",
+    "repro_torch.kernels.moe_grouped",
+    "repro_torch.kernels.moe_grouped.kernel",
+    "repro_torch.kernels.moe_grouped.ref",
+    "repro_torch.kernels.moe_grouped.ops",
     "repro_torch.serve", "repro_torch.serve.engine",
     "repro_torch.launch", "repro_torch.launch.serve",
     "repro_torch.core.scheduler", "repro_torch.search.space",

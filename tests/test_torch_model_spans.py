@@ -186,3 +186,43 @@ def test_prefill_spans_nest_as_the_layers_do():
     assert by_name["model.head"] == {"model.forward"}
     assert [s.attrs["layer"] for s in spans if s.name == "model.block"] \
         == list(range(cfg.n_layers))
+
+
+def test_hybrid_moe_prefill_spans():
+    """The `hybrid_moe` family (Mamba2 and attention layers, each followed
+    by a dropless MoE): its prefill records the Mamba2, attention and MoE
+    spans, the MoE's five inside "mlp", every operator under a span, and
+    the logits bit-equal to a call with tracing off."""
+    from repro_torch.configs.base import ModelConfig
+    cfg = ModelConfig(
+        name="tiny-hybrid-moe", family="hybrid_moe", n_layers=2,
+        d_model=64, vocab=128, n_heads=4, n_kv_heads=2, head_dim=16,
+        rope="none", n_experts=4, top_k=2, n_shared_experts=1, d_expert=32,
+        d_shared=48, capacity_factor=0.0, d_state=16, ssm_headdim=16,
+        chunk=16, layer_types=("mamba", "attention"),
+        embedding_multiplier=12.0, residual_multiplier=0.22,
+        logits_scaling=16.0, attention_multiplier=1 / 16,
+        param_dtype="float32", compute_dtype="float32")
+    model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=gen)}
+    with torch.no_grad():
+        off = forward(model, cfg, batch, logits_mode="last")
+        tr = Tracer()
+        with profile(activities=CPU) as prof, activate(tr):
+            on = forward(model, cfg, batch, logits_mode="last")
+    assert torch.equal(on, off)
+    spans = tr.buffer.snapshot()
+    moe_spans = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+                 "moe.shared"}
+    assert {s.name for s in spans} == COMMON | moe_spans | {
+        "ssm", "ssm.conv", "ssm.scan", "ssm.gate", "attn", "attn.rope",
+        "attn.core", "mlp"}
+    assert {spans[s.parent].name for s in spans if s.name in moe_spans} \
+        == {"mlp"}
+    assert sum(s.name == "moe.experts" for s in spans) == cfg.n_layers
+    ops = [e for e in prof.events() if e.name.startswith("aten::")
+           and not (e.cpu_parent and e.cpu_parent.name.startswith("aten::"))]
+    owners = {_parent_range(e) for e in ops}
+    assert owners <= set(MODEL_SPANS) - {"model.forward"}, owners
+    assert moe_spans <= owners

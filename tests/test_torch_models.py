@@ -10,6 +10,8 @@ whole forward and decode: float32 sums in another order (XLA's dot
 against ATen's), a few units in the last place a product, through two
 blocks and the LM head.  Observed errors are below 1e-6."""
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,9 +30,10 @@ from repro.models import layers as jax_layers
 from repro.models import moe as jax_moe
 from repro_torch import convert
 from repro_torch.configs import reduced_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models import (attention, decode_step, forward, init_cache,
-                                init_model, layers, moe)
+from repro_torch.models import (attention, cache_specs, decode_step, forward,
+                                init_cache, init_model, layers, moe)
 
 ARCH = "smollm-135m"
 LAYER_TOL, MODEL_TOL = 1e-5, 5e-5
@@ -298,3 +301,164 @@ def test_load_model_params_refuses_a_foreign_tree(models):
                        device="cpu")
     with pytest.raises(KeyError, match="lm_head"):
         convert.load_model_params(model, tree)
+
+
+# ==========================================================================
+# The port's own `hybrid_moe` family (Granite 4.0-H; the JAX package has no
+# counterpart): against the benchmark's plain float32 reference
+# (`portbench/reference/granite_hybrid.py`), the dropless MoE against a
+# loop over tokens, and decode through the two-kind cache against forward.
+# ==========================================================================
+HYBRID = ModelConfig(
+    name="tiny-hybrid-moe", family="hybrid_moe", n_layers=4, d_model=64,
+    vocab=128, n_heads=4, n_kv_heads=2, head_dim=16, rope="none",
+    n_experts=8, top_k=3, n_shared_experts=1, d_expert=32, d_shared=48,
+    capacity_factor=0.0, d_state=16, ssm_headdim=16, chunk=16,
+    layer_types=("mamba", "attention", "mamba", "mamba"),
+    embedding_multiplier=12.0, residual_multiplier=0.22,
+    logits_scaling=16.0, attention_multiplier=1 / 16,
+    param_dtype="float32", compute_dtype="float32")
+
+
+def _granite_reference():
+    """`portbench/reference/granite_hybrid.py` (the checkout's root on the
+    path: the reference imports its siblings as `portbench.reference`)."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.reference import granite_hybrid, plain
+    return granite_hybrid, plain
+
+
+def _hybrid(seed=0, **changes):
+    cfg = dataclasses.replace(HYBRID, **changes)
+    return cfg, init_model(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+
+
+def _per_token_moe(p, cfg, x):
+    """The routed experts and the shared expert token by token: top-k of
+    the router's logits, softmax over them, each chosen expert's SwiGLU."""
+    out = []
+    for xt in x.reshape(-1, x.shape[-1]):
+        top, idx = (xt @ p.router).topk(cfg.top_k)
+        gates = torch.softmax(top, -1)
+        y = (torch.nn.functional.silu(xt @ p.shared.w_gate)
+             * (xt @ p.shared.w_up)) @ p.shared.w_down
+        for g, e in zip(gates, idx):
+            y = y + g * ((torch.nn.functional.silu(xt @ p.w_gate[e])
+                          * (xt @ p.w_up[e])) @ p.w_down[e])
+        out.append(y)
+    return torch.stack(out).reshape(x.shape)
+
+
+@pytest.mark.parametrize("rows", ["routed", "one_empty", "all_in_one"])
+def test_grouped_product_equals_a_loop_over_rows(rows):
+    """The grouped op's plain version (the CPU's path) against each row
+    times its own expert's matrix: rows at random, with an expert given no
+    row, and with every row in one expert."""
+    from repro_torch.kernels.moe_grouped import ops as gops
+    gen = torch.Generator().manual_seed(3)
+    e, k, n, m = 6, 8, 5, 40
+    ids = torch.randint(0, e, (m,), generator=gen)
+    if rows == "one_empty":
+        ids[ids == 2] = 3
+    elif rows == "all_in_one":
+        ids.fill_(4)
+    order, offs = moe.sort_by_expert(ids, e)
+    assert offs.dtype == torch.int32 and int(offs[-1]) == m
+    x = torch.randn(m, k, generator=gen)
+    w = torch.randn(e, k, n, generator=gen)
+    got = gops.grouped_mm(x[order], w, offs)
+    want = torch.stack([x[i] @ w[ids[i]] for i in order.tolist()])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert sorted(ids[order].tolist()) == ids[order].tolist()
+
+
+@pytest.mark.parametrize("router", ["random", "skewed"])
+def test_dropless_moe_drops_no_token(router):
+    """The dropless MoE equals the token-by-token loop, also where a
+    skewed router sends every token to one expert (where the capacity path
+    drops tokens and differs)."""
+    cfg, model = _hybrid(1)
+    p = model.layers[0].mlp
+    u = torch.ones(cfg.d_model) / cfg.d_model ** 0.5
+    x = torch.randn(2, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4)) + 4 * u
+    with torch.no_grad():
+        if router == "skewed":
+            p.router[:, 5] = 20 * u
+        got = moe.moe_mlp(p, cfg, x)
+        want = _per_token_moe(p, cfg, x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if router == "skewed":
+            _, _, top_i = moe._route(x.reshape(-1, cfg.d_model), p.router,
+                                     cfg)
+            assert (top_i == 5).any(-1).all()
+            capped = moe.moe_mlp(p, dataclasses.replace(
+                cfg, capacity_factor=1.25), x)
+            assert (capped - want).abs().max() > 1e-3
+
+
+def test_hybrid_moe_equals_the_plain_reference():
+    """The float32 program's last-position logits against the benchmark's
+    reference on the same weights, by parameter name."""
+    ref, plain = _granite_reference()
+    cfg, model = _hybrid(2)
+    w = {n: t.detach() for n, t in model.named_parameters()}
+    assert set(w) == set(ref.PARAMS(dataclasses.asdict(cfg)))
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        got = forward(model, cfg, {"tokens": toks}, logits_mode="last")
+        want = ref.forward_last(w, dataclasses.asdict(cfg), toks,
+                                plain.Products())
+    torch.testing.assert_close(got[:, 0], want, rtol=1e-4, atol=1e-5)
+
+
+def test_hybrid_moe_decode_equals_forward_and_the_reference():
+    """Teacher-forced decode through `init_cache` (Mamba2 state for the
+    Mamba2 layers, k/v for the attention layer, by layer index) equals the
+    prefill's logits at every position, and the reference's at the last."""
+    ref, plain = _granite_reference()
+    cfg, model = _hybrid(3)
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(6))
+    cache = init_cache(cfg, 2, 32, device="cpu")
+    assert {k: set(v) for k, v in cache.items()} == \
+        {k: set(v) for k, v in cache_specs(cfg).items()}
+    assert set(cache) == {"ssm", "attn"}
+    assert cache["ssm"]["ssm"].shape[0] == 3
+    assert cache["attn"]["k"].shape[:3] == (1, 2, 32)
+    with torch.no_grad():
+        full = forward(model, cfg, {"tokens": toks})
+        for pos in range(toks.shape[1]):
+            logits, cache = decode_step(model, cfg, cache, toks[:, pos], pos)
+            torch.testing.assert_close(logits, full[:, pos], rtol=1e-4,
+                                       atol=1e-5)
+        w = {n: t.detach() for n, t in model.named_parameters()}
+        want = ref.forward_last(w, dataclasses.asdict(cfg), toks,
+                                plain.Products())
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-5)
+
+
+def test_dropless_moe_refuses_dtensors():
+    """Sharded experts or activations are not supported on the dropless
+    path: a DTensor raises a clear error before any routing."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.kernels.moe_grouped import ops as gops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg, model = _hybrid(4)
+    p = model.layers[0].mlp
+    x = torch.randn(1, 16, cfg.d_model)
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        dx = DTensor.from_local(x, mesh, [Replicate(), Replicate()])
+        with pytest.raises(NotImplementedError, match="one device"):
+            moe.moe_mlp(p, cfg, dx)
+        with pytest.raises(NotImplementedError, match="one device"):
+            gops.grouped_mm(dx.reshape(16, cfg.d_model), p.w_gate,
+                            torch.full((cfg.n_experts,), 16,
+                                       dtype=torch.int32))
+
