@@ -9,7 +9,7 @@ Each phase prints one line; any failure exits non-zero, and no phase
 catches its own failure.
 
   1. device   the card's name and power limit (nvidia-smi) and capability
-  2. build    nvcc builds the four kernel libraries from this checkout;
+  2. build    nvcc builds the five kernel libraries from this checkout;
               ptxas's registers and spills and the dynamic shared memory
               of the tensor-core flash kernel at each head dim (64, 80,
               96, 128), and each instantiation's count of HGMMA (wgmma)
@@ -124,14 +124,24 @@ catches its own failure.
               random weights from a CUDA generator seeded with 0): the
               prefill [2, 4096] with the flash hook installed launches
               the grouped GEMM 3 times a layer (120), flash once an
-              attention layer (4, tensor-core route), the SSD op ("tc")
-              and the conv kernel once a Mamba2 layer (36), and nothing
-              else; each timed as in phase 7, beside its bound
+              attention layer (4, tensor-core route), the SSD op ("tc"),
+              the conv kernel and the gate kernel once a Mamba2 layer
+              (36), and nothing else; each timed as in phase 7, beside
+              its bound
+  9d. gate    the Mamba2 gate-chain kernel (`kernels/ssm_gate`, through
+              `ops.ssm_gate`) at mamba2-2.7b's layer [4, 2048] and
+              granite-4.0-h-small's [2, 4096], bf16, on the views the
+              conv kernel and the SSD op hand the model, read in place:
+              one launch a call, within one bf16 ulp of the eager chain
+              (`ref.gate_chain`) on the same inputs; timed as in phase 7,
+              beside its bytes' bound (`gate_bound_ms`) and the eager
+              chain's time
  10. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
               weights from a CUDA generator seeded with 0): (a) the prefill
               `forward(tokens [4, 2048], logits_mode="last")` must launch
               the SSD op 64 times, all on route "tc", the conv kernel
-              (`kernels/ssm_conv`) 64 times, and nothing else
+              (`kernels/ssm_conv`) and the gate kernel (`kernels/ssm_gate`)
+              64 times each, and nothing else
               (the counters count op calls); timed, with the
               device's busy share; (b) `ServeEngine(batch=4, max_len=256)`
               answers the serve phase's load; (c) with the weights cast to float32 (bf16 rounding
@@ -142,8 +152,8 @@ catches its own failure.
  11. hybrid   zamba2-2.7b at full width and depth (54 Mamba2 layers, the
               shared GQA block after every 6, window 4096): the prefill
               [1, 2048] with the flash hook installed calls the SSD op 54
-              times, all on route "tc", the conv kernel 54 times, and the
-              flash kernel never (the window keeps it off, as in the
+              times, all on route "tc", the conv and gate kernels 54 times
+              each, and the flash kernel never (the window keeps it off, as in the
               reference's `sdpa`); decode over one chunk
               matches the prefill in float32, as in phase 10
  12. service  the DSE service (`DSEService(workers=2)`, a disk cache in a
@@ -235,7 +245,7 @@ catches its own failure.
               train_4k on the fake 16 x 16 mesh, one microbatch) and its
               roofline terms
 
-Phase 2 builds the four kernel libraries at once (one nvcc each).  The
+Phase 2 builds the five kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
@@ -397,6 +407,15 @@ CONV_TOL = 1e-5
 CONV_BF16_ULPS = 12
 U_BF16 = 2.0 ** -8
 
+# The gate-chain kernel (phase 9d): mamba2-2.7b's layer at [PREFILL_B,
+# PREFILL_S] and granite-4.0-h-small's at GRANITE_PREFILL, bf16.  It
+# rounds where the eager chain rounds; only its float32 sum of squares
+# runs in another order than ATen's, which moves a row's scale by a few
+# float32 ulps and so may flip the output's last rounding: one bf16 ulp
+# of the eager output allowed, as tests/test_torch_ssm_gate_gpu.py allows.
+GATE_SOURCE = "src/repro_torch/kernels/ssm_gate/csrc/ssm_gate.cu"
+GATE_KERNEL_NAME = "ssm_gate_kernel"
+
 # Granite 4.0-H Small (phase 9c), as the benchmark runs it: its config,
 # its attention layer's flash call at the benchmark's call of 8,192
 # tokens, and that call's expert products.
@@ -471,9 +490,10 @@ def build_phase() -> None:
     from repro_torch.kernels.mapspace_eval import kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
+    from repro_torch.kernels.ssm_gate import kernel as gate
     t0 = time.perf_counter()
     libs = build_all([kernel.LIBRARY, flash.LIBRARY, ssd.LIBRARY,
-                      conv.LIBRARY])
+                      conv.LIBRARY, gate.LIBRARY])
     dt = time.perf_counter() - t0
     for lib in libs:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -600,8 +620,11 @@ def launch_counts() -> dict:
     from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
+    from repro_torch.kernels.ssm_gate import kernel as gate
+    # the conv's and the gate's counters are both named "fused" there
     return {**kernel.LAUNCHES, **flash.LAUNCHES, **ssd.LAUNCHES,
-            **conv.LAUNCHES, **grouped.LAUNCHES}
+            **conv.LAUNCHES, **grouped.LAUNCHES,
+            "gate": gate.LAUNCHES["fused"]}
 
 
 def reset_launch_counts() -> None:
@@ -610,10 +633,12 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
+    from repro_torch.kernels.ssm_gate import kernel as gate
     kernel.reset_launches()
     flash.reset_launches()
     ssd.reset_launches()
     conv.reset_launches()
+    gate.reset_launches()
     grouped.reset_launches()
 
 
@@ -1854,6 +1879,114 @@ def ssm_conv_phase(dev):
     return record
 
 
+def gate_bound_ms(b, t, di, h, esize=2):
+    """The least time the card could take for the gate chain: its bytes at
+    HBM bandwidth (~40 instructions a channel are ~3 a byte, below the
+    ridge): float32 y and xh and `esize` z read once, the output written
+    once, D and out_norm read once."""
+    nbytes = b * t * di * (4 + 4 + 2 * esize) + (di + h) * esize
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _gate_inputs(cfg, b, t, dev):
+    """(y, xh, D, z, out_norm) in bf16 as `mamba2_forward` hands them over
+    at `cfg`'s layer: `_conv_inputs` through the conv kernel (z its view,
+    xh the first d_inner columns of its float32 output) and the SSD op (y,
+    A from -1 to -16 over the heads), D about 1 and out_norm about 1."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_conv import ops as conv_ops
+    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.d_state
+    h, p, g = cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_ngroups
+    z, conv32, dt = conv_ops.ssm_conv(*_conv_inputs(cfg, b, t, dev),
+                                      d_inner=di, gn=gn)
+    xh = conv32[..., :di].unflatten(-1, (h, p))
+    bh = conv32[..., di:di + gn].unflatten(-1, (g, gn // g))
+    ch = conv32[..., di + gn:].unflatten(-1, (g, gn // g))
+    y = ssd_ops.ssd_scan(xh, dt, -torch.linspace(1.0, 16.0, h, device=dev),
+                         bh, ch, chunk=cfg.chunk)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    d = 1 + 0.5 * torch.randn(h, generator=gen, device=dev)
+    w = 1 + 0.1 * torch.randn(di, generator=gen, device=dev)
+    return y, xh, d.to(torch.bfloat16), z, w.to(torch.bfloat16)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def ssm_gate_phase(dev):
+    """Phase 9d: the gate-chain kernel through `ops.ssm_gate` at
+    mamba2-2.7b's layer [PREFILL_B, PREFILL_S] and granite-4.0-h-small's
+    [GRANITE_PREFILL], bf16 on the model's views, read in place: one
+    launch a call, within one bf16 ulp of `ref.gate_chain` on the same
+    inputs; timed as the conv phase times -> the kernel's record
+    (mamba2's layer, granite's beside)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_gate import kernel, ops, ref
+    record = None
+    bf16 = torch.bfloat16
+    for cfg, (b, t) in ((get_config(SSM_ARCH), (PREFILL_B, PREFILL_S)),
+                        (granite_config(), GRANITE_PREFILL)):
+        di, h = cfg.d_inner, cfg.n_ssm_heads
+        shape = (f"{cfg.name} layer: B={b} T={t} H={h} "
+                 f"P={cfg.ssm_headdim}")
+        with torch.no_grad():
+            args = _gate_inputs(cfg, b, t, dev)
+            if not kernel.vector_ok(*args[:2], args[3], args[4]):
+                raise RuntimeError(f"gate {shape}: the model's views would "
+                                   f"be copied, not read in place")
+            run = lambda: ops.ssm_gate(  # noqa: E731
+                *args, eps=cfg.norm_eps, dtype=bf16)
+            plain = lambda: ref.gate_chain(  # noqa: E731
+                *args, cfg.norm_eps, bf16)
+            before = kernel.LAUNCHES["fused"]
+            out = run()
+            torch.cuda.synchronize()
+            if kernel.LAUNCHES["fused"] != before + 1:
+                raise RuntimeError(f"gate {shape}: launches {before} -> "
+                                   f"{kernel.LAUNCHES['fused']}, want one")
+            want = plain()
+            err = (out.float() - want.float()).abs()
+            over = float((err / _bf16_ulp(torch.maximum(
+                out.float().abs(), want.float().abs()))).max())
+            max_err, n_off = float(err.max()), int((err > 0).sum())
+            if over > 1 or not torch.isfinite(out).all():
+                raise RuntimeError(f"gate {shape}: {over:.3g} bf16 ulps "
+                                   f"from the eager chain, one allowed")
+            del out, want, err
+            ms = device_times_ms(run, cold=True)
+            plain_ms = device_times_ms(plain, cold=True)
+            _, (prof_ms, _, kern_n) = profile_kernels(
+                lambda: [run() for _ in range(N_TIMED)], (GATE_KERNEL_NAME,))
+        b_ms = gate_bound_ms(b, t, di, h)
+        if b_ms > ms:
+            raise RuntimeError(f"gate {shape}: {ms:.4f} ms is under its "
+                               f"bound {b_ms:.4f} ms")
+        say("gate", f"{shape}: one launch; max abs err {max_err:.3g} "
+            f"against the eager bf16 chain ({n_off} of {b * t * di} "
+            f"outputs off, {over:.3g} of the one-ulp bound); {ms:.4f} ms "
+            f"cold, profiler {_ms(prof_ms)} ms a launch (>= {kern_n} "
+            f"recorded); bound {b_ms:.5f} ms (bytes), at "
+            f"{100 * b_ms / ms:.1f}% of it; the eager chain {plain_ms:.4f} "
+            f"ms cold")
+        if record is None:
+            record = dict(
+                name="ssm_gate", route="cuda", source=GATE_SOURCE,
+                replaces=None, launches=None, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=None, bf16_ulp_share=over, profiler_ms=prof_ms,
+                shape=shape)
+        else:
+            record.update(granite_ms=ms, granite_plain_ms=plain_ms,
+                          granite_bound_ms=b_ms, granite_max_abs_err=max_err,
+                          granite_bf16_ulp_share=over)
+        del args
+        torch.cuda.empty_cache()
+    return record
+
+
 def granite_config():
     """granite-4.0-h-small's `ModelConfig`, from the benchmark's config
     file as `portbench/harness.py::program` builds it."""
@@ -2006,7 +2139,7 @@ def granite_prefill(dev, cfg) -> dict:
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "flash": n_attn,
                     "flash_wgmma": n_attn, "ssd": n_mamba,
-                    "ssd_tc": n_mamba, "fused": n_mamba,
+                    "ssd_tc": n_mamba, "fused": n_mamba, "gate": n_mamba,
                     "grouped": 3 * cfg.n_layers}
             if launches != want:
                 raise RuntimeError(f"granite prefill launches {launches}, "
@@ -2044,7 +2177,8 @@ def granite_phase(dev) -> tuple:
 def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
     """A Mamba2 model (ssm or hybrid family) at the size `cfg` gives, with
     the flash hook installed: the prefill [prefill_b, PREFILL_S] must
-    launch the SSD and conv kernels once a Mamba2 layer and nothing else;
+    launch the SSD, conv and gate kernels once a Mamba2 layer and nothing
+    else;
     then the engine (when `engine`); then, with the weights cast to
     float32 in place, teacher-forced decode over TEACHER_LEN tokens
     against the kernel prefill's last logits (LOGIT_TOL_F32) -> the
@@ -2084,11 +2218,12 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
             torch.cuda.synchronize()
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "ssd": cfg.n_layers,
-                    "ssd_tc": cfg.n_layers, "fused": cfg.n_layers}
+                    "ssd_tc": cfg.n_layers, "fused": cfg.n_layers,
+                    "gate": cfg.n_layers}
             if launches != want:
                 raise RuntimeError(f"prefill launches {launches}, want "
-                                   f"ssd=ssd_tc=fused={cfg.n_layers} and "
-                                   f"no other")
+                                   f"ssd=ssd_tc=fused=gate={cfg.n_layers} "
+                                   f"and no other")
             if tuple(logits.shape) != (prefill_b, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"prefill: bad logits "
@@ -2966,6 +3101,7 @@ def main() -> int:
     records["ssm_conv"] = ssm_conv_phase(dev)
     granite_flash_case, records["moe_grouped"], granite = granite_phase(dev)
     records["flash_attention"]["granite_scaled"] = granite_flash_case
+    records["ssm_gate"] = ssm_gate_phase(dev)
     records["moe_grouped"].update(
         launches=granite["grouped"],
         launches_by_path={GRANITE_NAME: granite["grouped"]})
@@ -2976,6 +3112,9 @@ def main() -> int:
     records["ssm_conv"].update(launches=ssm["fused"], launches_by_path={
         SSM_ARCH: ssm["fused"], HYBRID_ARCH: hybrid["fused"],
         GRANITE_NAME: granite["fused"]})
+    records["ssm_gate"].update(launches=ssm["gate"], launches_by_path={
+        SSM_ARCH: ssm["gate"], HYBRID_ARCH: hybrid["gate"],
+        GRANITE_NAME: granite["gate"]})
     by_path = {SERVE_ARCH: records["flash_attention"]["launches"],
                HYBRID_ARCH: 0, GRANITE_NAME: granite["flash"]}
     for arch in FAMILY_FLASH:

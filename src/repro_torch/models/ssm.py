@@ -14,7 +14,10 @@ with bias and SiLU, float32 cast, dt's softplus) runs through
 `kernels/ssm_conv/ops.py::ssm_conv` (its plain version `conv_chain` for
 CPU tensors, one CUDA kernel for CUDA tensors) and, while gradients are
 recorded, on `conv_chain` itself; the plain conv functions live in
-`kernels/ssm_conv/ref.py`.
+`kernels/ssm_conv/ref.py`.  The gate chain after the scan (the D skip,
+cast, SiLU gate and RMS norm) runs the same way through
+`kernels/ssm_gate/ops.py::ssm_gate` (one CUDA kernel for CUDA tensors) or,
+while gradients are recorded, `kernels/ssm_gate/ref.py::gate_chain`.
 
 Layout: x [B, T, D] -> in_proj -> (z, xc, B, C, dt); causal depthwise conv
 on (xc, B, C); SSD over heads H = d_inner / headdim with scalar A per head;
@@ -35,6 +38,8 @@ from ..kernels.ssd_scan.ref import (segsum, ssd_chunk_scan,  # noqa: F401
 from ..kernels.ssm_conv import ops as conv_ops
 from ..kernels.ssm_conv.ref import (causal_conv, conv_chain, dt_softplus,
                                     split_proj)
+from ..kernels.ssm_gate import ops as gate_ops
+from ..kernels.ssm_gate.ref import gate_chain
 from ..obs.trace import NULL_TRACER
 from .layers import ParamInit, fold_tokens, rms_norm, shard, split_dim
 
@@ -69,12 +74,13 @@ def init_mamba2(init: ParamInit, cfg: ModelConfig) -> Mamba2:
 
 
 def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
-    """x: [B,T,D] -> [B,T,D].  The conv chain and the SSD scan each run, by
-    grad mode only and never by a failure: while gradients are recorded
-    for any of their inputs, on the differentiable `conv_chain` and
-    `ssd_chunk_scan_streaming` (the reference's chain and scan, in every
-    mode there); otherwise on `conv_ops.ssm_conv` and `ssd_ops.ssd_scan`
-    (CUDA kernels for CUDA tensors, which raise under autograd).  The scan
+    """x: [B,T,D] -> [B,T,D].  The conv chain, the SSD scan and the gate
+    chain each run, by grad mode only and never by a failure: while
+    gradients are recorded for any of their inputs, on the differentiable
+    `conv_chain`, `ssd_chunk_scan_streaming` and `gate_chain` (the
+    reference's chains and scan, in every mode there); otherwise on
+    `conv_ops.ssm_conv`, `ssd_ops.ssd_scan` and `gate_ops.ssm_gate` (CUDA
+    kernels for CUDA tensors, which raise under autograd).  The scan
     runs on float32 views of the conv output (xh, B and C are strided
     slices of one float32 tensor).  `tracer` records the spans "ssm.conv"
     (in_proj's output through dt's softplus), "ssm.scan" and "ssm.gate"
@@ -83,7 +89,6 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
                    "batch", None, "ssm_inner")
     di = cfg.d_inner
     g, n = cfg.ssm_ngroups, cfg.d_state
-    b, t, _ = x.shape
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     with tracer.span("ssm.conv"):
         conv_args = (zxbcdt, p.conv_w, p.conv_b, p.dt_bias)
@@ -106,10 +111,14 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
         else:
             y = ssd_ops.ssd_scan(*scan_args, chunk=cfg.chunk)
     with tracer.span("ssm.gate"):
-        y = shard(y + xh * p.D.float()[None, None, :, None],
-                  "batch", None, "ssm_heads", None)
-        y = y.reshape(b, t, di).to(x.dtype)
-        y = rms_norm(y * F.silu(z), p.out_norm, cfg.norm_eps)
+        y = shard(y, "batch", None, "ssm_heads", None)
+        gate_args = (y, xh, p.D, z, p.out_norm)
+        if torch.is_grad_enabled() and \
+                any(v.requires_grad for v in gate_args):
+            y = gate_chain(*gate_args, cfg.norm_eps, x.dtype)
+        else:
+            y = gate_ops.ssm_gate(*gate_args, eps=cfg.norm_eps,
+                                  dtype=x.dtype)
     return shard(fold_tokens(y, p.out_proj) @ p.out_proj,
                  "batch", "seq", "embed")
 

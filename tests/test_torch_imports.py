@@ -60,6 +60,8 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.ops",
     "repro_torch.kernels.ssm_conv", "repro_torch.kernels.ssm_conv.kernel",
     "repro_torch.kernels.ssm_conv.ref", "repro_torch.kernels.ssm_conv.ops",
+    "repro_torch.kernels.ssm_gate", "repro_torch.kernels.ssm_gate.kernel",
+    "repro_torch.kernels.ssm_gate.ref", "repro_torch.kernels.ssm_gate.ops",
     "repro_torch.kernels.moe_grouped",
     "repro_torch.kernels.moe_grouped.kernel",
     "repro_torch.kernels.moe_grouped.ref",
