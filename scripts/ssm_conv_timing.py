@@ -10,7 +10,8 @@ layer (G N 64) at [4, 2048]:
     `chip_smoke.N_TIMED` (`chip_smoke.device_times_ms`);
   * torch.profiler's device time of the kernel a launch at [4, 2048];
   * the bound: the bytes the chain must move (its bf16 input and float32
-    output of C + H columns a token, the weights once) at 3.35 TB/s;
+    output of C + H columns a token, the weights once) at 3.35 TB/s
+    (`chip_smoke.conv_bound_ms`);
   * per model call of the cycle (64 layers, the 8 calls' mean): the
     kernel's and the plain version's summed cold times.
 
@@ -49,15 +50,6 @@ def _inputs(b, t, gn, dev, seed=0):
             z(c, scale=0.1), z(H, scale=0.5))
 
 
-def bound_ms(b: int, t: int, gn: int) -> float:
-    """The chain's bytes (bf16 in, float32 out, weights once) at the
-    card's bandwidth."""
-    from chip_smoke import HBM_BYTES_PER_S
-    c = DI + 2 * gn
-    nbytes = b * t * (c + H) * (2 + 4) + (K * c + c + H) * 2
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
@@ -66,7 +58,7 @@ def main() -> int:
         print("ssm_conv_timing: no CUDA device available", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from chip_smoke import device_busy, device_times_ms
+    from chip_smoke import conv_bound_ms, device_busy, device_times_ms
     from repro_torch.kernels.ssm_conv import kernel, ops, ref
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -85,7 +77,7 @@ def main() -> int:
             ms = device_times_ms(run, cold=True)
             warm = device_times_ms(run)
             plain_ms = device_times_ms(plain, cold=True)
-            bound = bound_ms(b, t, gn)
+            bound = conv_bound_ms(b, t, DI + 2 * gn, H, K)
             row = dict(model=model, shape=[b, t], kernel_ms=ms,
                        kernel_warm_ms=warm, plain_ms=plain_ms,
                        bound_ms=bound, share_of_bound=bound / ms,

@@ -13,7 +13,7 @@ each call shape of the benchmark's `code-4k` cycle:
   * torch.profiler's device time of the kernel a launch at [4, 2048];
   * the bound: the bytes the chain must move (float32 y and xh and bf16 z
     read once, the bf16 output written once, D and out_norm once) at 3.35
-    TB/s, and the kernel's share of it;
+    TB/s (`chip_smoke.gate_bound_ms`), and the kernel's share of it;
   * per model call of the cycle (the 8 calls' mean, every Mamba2 layer):
     the kernel's, the plain version's and the bound's summed cold times.
 
@@ -57,14 +57,6 @@ def _inputs(b, t, h, dev, seed=0):
             (1 + 0.1 * r(di)).to(torch.bfloat16))
 
 
-def bound_ms(b: int, t: int, h: int) -> float:
-    """The chain's bytes at the card's bandwidth."""
-    from chip_smoke import HBM_BYTES_PER_S
-    di = h * P
-    nbytes = b * t * di * (4 + 4 + 2 + 2) + (di + h) * 2
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
@@ -73,7 +65,7 @@ def main() -> int:
         print("ssm_gate_timing: no CUDA device available", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from chip_smoke import device_busy, device_times_ms
+    from chip_smoke import device_busy, device_times_ms, gate_bound_ms
     from repro_torch.kernels.ssm_gate import kernel, ops, ref
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,7 +87,7 @@ def main() -> int:
                 ms = device_times_ms(run, cold=True)
                 warm = device_times_ms(run)
                 plain_ms = device_times_ms(plain, cold=True)
-                bound = bound_ms(b, t, h)
+                bound = gate_bound_ms(b, t, h * P, h)
                 row = dict(model=model, shape=[b, t], kernel_ms=ms,
                            kernel_warm_ms=warm, plain_ms=plain_ms,
                            bound_ms=bound, share_of_bound=bound / ms,

@@ -7,8 +7,9 @@ nondeterministic leaks into these paths:
   * **scoring modules** (`core/evaluator.py`, `core/mapper.py`,
     `core/mapspace_array.py`, `core/backend.py`, `core/batch_eval.py`,
     `core/scheduler.py`, and the mapspace kernel's wrapper, job record
-    and plain version under `kernels/mapspace_eval/`, which the "cuda"
-    engine scores through):
+    and plain version under `kernels/mapspace_eval/` and the launcher
+    they share with the other kernels, `kernels/build.py`, which the
+    "cuda" engine scores through):
     no unseeded `np.random.default_rng()` / `random.Random()`, no
     module-level `random.*` draws, no `time.time()` in value position
     (wall-clock reads belong in obs/bench code, not scoring);
@@ -41,8 +42,9 @@ SCORING_MODULES = ("core/evaluator.py", "core/mapper.py",
                    # would make mix winners run-dependent
                    "core/scheduler.py",
                    # the "cuda" engine's scoring path: the kernel's
-                   # wrapper, its job record and its plain version
-                   "kernels/mapspace_eval/kernel.py",
+                   # wrapper, its launcher, its job record and its plain
+                   # version
+                   "kernels/mapspace_eval/kernel.py", "kernels/build.py",
                    "kernels/mapspace_eval/ops.py",
                    "kernels/mapspace_eval/ref.py")
 STRATEGY_MODULES = ("search/strategies.py",)

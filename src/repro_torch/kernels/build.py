@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each kernel source is one `.cu` file with a plain C interface.  `nvcc`
 compiles it for sm_90a into a shared library under
@@ -7,6 +7,15 @@ use and never at import; the file name carries a hash of the source and
 the flags, so an edit rebuilds.  The compiler's register/spill report
 (`-Xptxas -v`) is kept beside it as `.log`.  The library is loaded with
 `ctypes` and bound once by the kernel module's `bind` callback.
+
+What every kernel wrapper (`kernels/<k>/kernel.py`) shares lives here too:
+`CudaLibrary.launch` (the call on PyTorch's current stream and its return
+code), `Launches` (the launch counters, behind one lock), `aligned` (the
+16-byte rule of TMA, `cp.async` and vector accesses) and the guards
+`cuda_only` and `forward_only`.  `needs_grad` is the one rule by which a
+Mamba2 op (`ssm_conv`, `ssd_scan`, `ssm_gate`) takes its plain version:
+while autograd records a gradient through an input, whatever the device,
+since the kernels have no backward.
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Optional, Sequence
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
@@ -72,8 +83,80 @@ class CudaLibrary:
                 self._lib = lib
         return self._lib
 
+    def launch(self, entry: str, device, *args) -> None:
+        """Call the C entry `entry` with `args` and the handle of PyTorch's
+        current stream on `device`, inside that device; raise on a nonzero
+        return: a negative one is the CUDA driver's `CUresult` (a tensor map
+        it refused), a positive one a `cudaError`."""
+        fn = getattr(self.load(), entry)
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc < 0:
+            raise RuntimeError(f"{self.name} ({entry}): the CUDA driver "
+                               f"refused a tensor map: CUresult {-rc}")
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed ({entry}): "
+                               f"cudaError {rc}")
+
 
 def build_all(libraries: Sequence[CudaLibrary]) -> list:
     """Run one `nvcc` per library, all at once; -> their paths in order."""
     with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
         return list(pool.map(CudaLibrary.build, libraries))
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+class Launches(dict):
+    """A wrapper's launch counts by key, from 0 at import; `add` and
+    `reset` take one lock shared by every wrapper, so the counts stay exact
+    under threads (a DSE service scores several jobs at once)."""
+
+    def __init__(self, *keys: str):
+        super().__init__((k, 0) for k in keys)
+
+    def add(self, *keys: str) -> None:
+        """Count one launch under each of `keys`."""
+        with _COUNT_LOCK:
+            for k in keys:
+                self[k] += 1
+
+    def reset(self) -> None:
+        with _COUNT_LOCK:
+            for k in self:
+                self[k] = 0
+
+
+def aligned(t, nbytes: int = 16, dims: Optional[Sequence[int]] = None,
+            offset: int = 0) -> bool:
+    """Whether `t`'s base pointer plus `offset` bytes is a multiple of
+    `nbytes`, and so is the stride in bytes, positive, of each dim of
+    `dims` (default: all but the last) longer than 1.  Pure Python, no
+    launch."""
+    if (t.data_ptr() + offset) % nbytes:
+        return False
+    size, shape, stride = t.element_size(), t.shape, t.stride()
+    for d in range(len(shape) - 1) if dims is None else dims:
+        if shape[d] > 1 and (stride[d] <= 0 or stride[d] * size % nbytes):
+            return False
+    return True
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a gradient through any of `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def cuda_only(what: str, device) -> None:
+    """Raise unless `device` is a CUDA device: `what` runs nowhere else."""
+    if device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {device}")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through `what`, a kernel
+    with no backward, from any of `tensors`."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"the {what} kernel has no backward; call it "
+                           f"under torch.no_grad()")

@@ -13,36 +13,30 @@ taken as `q_head // group`, so no K/V copy is made:
   a layout TMA cannot read, products in fp32 on the CUDA cores.
 
 `choose_route` picks one from the inputs' type and alignment before any
-launch; nothing falls back from one to the other.  The source is
-compiled by `nvcc` at first use (`kernels/build.py`) and loaded with
-`ctypes`; `flash_attention_fwd` launches on PyTorch's current stream and
-counts its launches: `LAUNCHES["flash"]` every launch,
-`LAUNCHES["flash_wgmma"]` those of the tensor-core route.
+launch; nothing falls back from one to the other.  The source is built,
+loaded and launched through `kernels/build.py`; `LAUNCHES["flash"]`
+counts every launch, `LAUNCHES["flash_wgmma"]` those of the tensor-core
+route.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
 
 import torch
 
 from ...configs.base import inv_sqrt_f32
-from ..build import SM90A, CudaLibrary
+from ..build import (SM90A, CudaLibrary, Launches, aligned, cuda_only,
+                     forward_only)
 
 SUPPORTED_D = (64, 80, 96, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the routes, by the code the C entry takes
 ROUTES = {"simt": 0, "wgmma": 1}
-TMA_ALIGN = 16             # bytes: TMA's base address and stride unit
 
 #: kernel launches since import (or the last `reset_launches`)
-LAUNCHES: Dict[str, int] = {"flash": 0, "flash_wgmma": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = Launches("flash", "flash_wgmma")
+reset_launches = LAUNCHES.reset
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -96,15 +90,9 @@ def choose_route(q, k, v) -> str:
     (of every dimension longer than 1) are positive multiples of 16 bytes,
     as TMA reads them; "simt" for everything else.  Pure Python, no
     launch."""
-    if q.dtype != torch.bfloat16:
-        return "simt"
-    for t in (q, k, v):
-        if t.data_ptr() % TMA_ALIGN:
-            return "simt"
-        for n, st in zip(t.shape[:3], t.stride()[:3]):
-            if n > 1 and (st <= 0 or st * t.element_size() % TMA_ALIGN):
-                return "simt"
-    return "wgmma"
+    if q.dtype == torch.bfloat16 and all(aligned(t) for t in (q, k, v)):
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -118,30 +106,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     scale = inv_sqrt_f32(q.shape[3]) if scale is None else float(scale)
     if not scale > 0:
         raise ValueError(f"the softmax scale must be positive, got {scale}")
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the flash-attention kernel has no backward yet; "
-                           "call it under torch.no_grad()")
+    cuda_only("flash-attention", q.device)
+    forward_only("flash-attention", q, k, v)
     route = choose_route(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return o
     strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = LIBRARY.load().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            k.shape[2], d, DTYPE_CODES[q.dtype], int(causal), ROUTES[route],
-            *strides, scale, stream)
-    if rc < 0:
-        raise RuntimeError(f"flash_attention ({route}): the driver refused "
-                           f"a tensor map: CUresult {-rc}")
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"({route}): cudaError {rc}")
-    LAUNCHES["flash"] += 1
+    LIBRARY.launch(
+        "flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), b, s, h, k.shape[2], d,
+        DTYPE_CODES[q.dtype], int(causal), ROUTES[route], *strides, scale)
+    LAUNCHES.add("flash")
     if route == "wgmma":
-        LAUNCHES["flash_wgmma"] += 1
+        LAUNCHES.add("flash_wgmma")
     return o

@@ -13,46 +13,31 @@ one float64 record of constants per (architecture, workload) job
     job j owning rows offsets[j]:offsets[j+1], in one launch
     (`_score_kernel_multi`).
 
-The source is compiled by `nvcc` at first use (`kernels/build.py`; one
-library for every layout) and loaded with `ctypes`.  Each wrapper checks
-its inputs, launches on PyTorch's current stream and counts its launches in
-`LAUNCHES`.  A wrapper given CPU tensors computes the plain PyTorch version
-(`ref.py`) instead — chosen by the tensors' device only; for CUDA tensors it
-launches the kernel or raises.
+The source is built, loaded and launched through `kernels/build.py` (one
+library for every layout).  Each wrapper checks its inputs, launches and
+counts its launches in `LAUNCHES`.  A wrapper given CPU tensors computes
+the plain PyTorch version (`ref.py`) instead — chosen by the tensors'
+device only; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Dict
 
 import torch
 
 from . import ref
-from ..build import CudaLibrary
+from ..build import CudaLibrary, Launches, aligned, cuda_only
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SUPPORTED_N_MEM = (2, 3)
-ALIGN = 16            # the kernel stages its inputs with 16-byte copies
 
 #: kernel launches per variant since import (or the last `reset_launches`);
 #: exact under threads (a DSE service scores several jobs at once)
-LAUNCHES: Dict[str, int] = {"single": 0, "multi": 0}
-_LAUNCHES_LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LAUNCHES_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count_launch(variant: str) -> None:
-    with _LAUNCHES_LOCK:
-        LAUNCHES[variant] += 1
+LAUNCHES = Launches("single", "multi")
+reset_launches = LAUNCHES.reset
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -106,13 +91,12 @@ def _check(factors, rank, store, jobs, offsets, layout: ref.Layout):
 
 def _launch(factors, rank, store, jobs, offsets, layout: ref.Layout, b: int,
             dev):
-    if dev.type != "cuda":
-        raise ValueError(f"no mapspace_eval kernel for device {dev}")
+    cuda_only("mapspace_eval", dev)
     for name, t in (("factors", factors), ("rank", rank), ("store", store),
                     ("jobs", jobs)):
-        if t.data_ptr() % ALIGN:
+        if not aligned(t, dims=()):    # its inputs staged by 16-byte copies
             raise ValueError(f"kernel input {name} must start on a "
-                             f"{ALIGN}-byte boundary")
+                             f"16-byte boundary")
     cycles = torch.empty((b,), dtype=torch.float32, device=dev)
     energy = torch.empty((b,), dtype=torch.float32, device=dev)
     valid = torch.empty((b,), dtype=torch.bool, device=dev)
@@ -121,17 +105,13 @@ def _launch(factors, rank, store, jobs, offsets, layout: ref.Layout, b: int,
     mem = list(layout.mem_idx) + [-1] * (ref.MAX_MEM - len(layout.mem_idx))
     rout_mask = sum(1 << r for r in layout.rout_idx)
     n_jobs = 1 if offsets is None else offsets.shape[0] - 1
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = LIBRARY.load().mapspace_eval_score(
-            factors.data_ptr(), rank.data_ptr(), store.data_ptr(),
-            jobs.data_ptr(), None if offsets is None else offsets.data_ptr(),
-            n_jobs, b, layout.n_levels, len(layout.mem_idx), *mem, rout_mask,
-            int(layout.depthwise), int(layout.has_weight),
-            cycles.data_ptr(), energy.data_ptr(), valid.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"mapspace_eval kernel launch failed: "
-                           f"cudaError {rc}")
+    LIBRARY.launch(
+        "mapspace_eval_score", dev, factors.data_ptr(), rank.data_ptr(),
+        store.data_ptr(), jobs.data_ptr(),
+        None if offsets is None else offsets.data_ptr(), n_jobs, b,
+        layout.n_levels, len(layout.mem_idx), *mem, rout_mask,
+        int(layout.depthwise), int(layout.has_weight), cycles.data_ptr(),
+        energy.data_ptr(), valid.data_ptr())
     return cycles, energy, valid
 
 
@@ -145,7 +125,7 @@ def mapspace_eval_fwd(factors, rank, store, job, *, layout: ref.Layout):
         return ref.score_ref(factors, rank, store, job, layout=layout)
     out = _launch(factors, rank, store, job, None, layout, b, dev)
     if b:
-        _count_launch("single")
+        LAUNCHES.add("single")
     return out
 
 
@@ -162,5 +142,5 @@ def mapspace_eval_multi_fwd(factors, rank, store, jobs, offsets, *,
                                    layout=layout)
     out = _launch(factors, rank, store, jobs, offsets, layout, b, dev)
     if b:
-        _count_launch("multi")
+        LAUNCHES.add("multi")
     return out

@@ -7,20 +7,13 @@ projections' cuBLAS GEMMs are; `grouped_mm_fwd` counts its launches in
 """
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
-#: bytes: the grouped GEMM's alignment of base pointers and row strides
-ALIGN = 16
+from ..build import Launches, aligned, cuda_only, forward_only
 
 #: launches since import (or the last `reset_launches`)
-LAUNCHES: Dict[str, int] = {"grouped": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = Launches("grouped")
+reset_launches = LAUNCHES.reset
 
 
 def check_inputs(x, w, offs) -> None:
@@ -47,19 +40,14 @@ def grouped_mm_fwd(x, w, offs) -> torch.Tensor:
     """x [M, K] bf16 CUDA, rows sorted by group; w [G, K, N] bf16; offs
     [G] int32 on the device -> [M, N] bf16.  Forward only."""
     check_inputs(x, w, offs)
-    if x.device.type != "cuda":
-        raise ValueError(f"no grouped GEMM for device {x.device}")
+    cuda_only("grouped GEMM", x.device)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the grouped GEMM takes bfloat16, got {x.dtype}")
     for t in (x, w):
-        if t.data_ptr() % ALIGN or any(
-                st * t.element_size() % ALIGN for st in t.stride()[:-1]):
-            raise ValueError(f"grouped_mm needs {ALIGN}-byte aligned "
-                             f"pointers and row strides, got "
-                             f"{tuple(t.stride())}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError("the grouped expert product has no backward "
-                           "here; call it under torch.no_grad()")
+        if not aligned(t):
+            raise ValueError(f"grouped_mm needs 16-byte aligned pointers "
+                             f"and row strides, got {tuple(t.stride())}")
+    forward_only("grouped GEMM", x, w)
     out = torch._grouped_mm(x, w, offs=offs)
-    LAUNCHES["grouped"] += 1
+    LAUNCHES.add("grouped")
     return out

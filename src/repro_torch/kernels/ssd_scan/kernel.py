@@ -14,20 +14,19 @@ strides (group h // (H/G), no copies):
   in shared memory, on the CUDA cores.
 
 `choose_route` picks one from the shapes and alignment before any launch;
-nothing falls back from one to the other.  The source is compiled by `nvcc`
-at first use (`kernels/build.py`) and loaded with `ctypes`; `ssd_scan_fwd`
-launches on PyTorch's current stream and counts op calls in
-`LAUNCHES["ssd"]`, those on route "tc" also in `LAUNCHES["ssd_tc"]`.
+nothing falls back from one to the other.  The source is built, loaded and
+launched through `kernels/build.py`; `LAUNCHES["ssd"]` counts op calls,
+`LAUNCHES["ssd_tc"]` those on route "tc".
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
 
 import torch
 
-from ..build import SM90A, CudaLibrary
+from ..build import (SM90A, CudaLibrary, Launches, aligned, cuda_only,
+                     forward_only)
 
 SUPPORTED_P = (8, 16, 32, 64)
 SUPPORTED_N = (16, 32, 64, 128)
@@ -36,17 +35,12 @@ SUPPORTED_CHUNK = (16, 32, 64, 128)
 #: P >= 32; a 32-wide K panel of C and B needs N >= 32 and chunk >= 64)
 TC_P, TC_N, TC_CHUNK = (32, 64), (32, 64, 128), (64, 128)
 ROUTES = ("simt", "tc")
-CP_ASYNC_ALIGN = 16        # bytes: cp.async's source alignment
 
 #: op calls since import (or the last `reset_launches`): every call in
 #: "ssd", those on route "tc" also in "ssd_tc"; "ssd_steps" counts calls of
 #: the test-only `ssd_tc_steps`
-LAUNCHES: Dict[str, int] = {"ssd": 0, "ssd_tc": 0, "ssd_steps": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = Launches("ssd", "ssd_tc", "ssd_steps")
+reset_launches = LAUNCHES.reset
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -110,27 +104,16 @@ def choose_route(xh, dt, a, bh, ch, *, chunk: int) -> str:
     xh, bh and ch at 16-byte-aligned addresses and strides (of every
     dimension longer than 1), as `cp.async` reads them; "simt" for the
     rest.  Pure Python, no launch."""
-    p, n = xh.shape[3], bh.shape[3]
-    if chunk not in TC_CHUNK or p not in TC_P or n not in TC_N:
-        return "simt"
-    for t in (xh, bh, ch):
-        if t.data_ptr() % CP_ASYNC_ALIGN:
-            return "simt"
-        for size, st in zip(t.shape[:3], t.stride()[:3]):
-            if size > 1 and (st <= 0
-                             or st * t.element_size() % CP_ASYNC_ALIGN):
-                return "simt"
-    return "tc"
+    if chunk in TC_CHUNK and xh.shape[3] in TC_P and bh.shape[3] in TC_N \
+            and all(aligned(t) for t in (xh, bh, ch)):
+        return "tc"
+    return "simt"
 
 
 def _check_launch(xh, dt, a, bh, ch, chunk: int) -> None:
     check_inputs(xh, dt, a, bh, ch, chunk=chunk)
-    if xh.device.type != "cuda":
-        raise ValueError(f"no SSD-scan kernel for device {xh.device}")
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (xh, dt, a, bh, ch)):
-        raise RuntimeError("the SSD-scan kernel has no backward yet; call "
-                           "it under torch.no_grad()")
+    cuda_only("SSD-scan", xh.device)
+    forward_only("SSD-scan", xh, dt, a, bh, ch)
 
 
 def _launch_tc(xh, dt, a, bh, ch, chunk: int, last_step: int):
@@ -150,16 +133,11 @@ def _launch_tc(xh, dt, a, bh, ch, chunk: int, last_step: int):
     if b == 0 or t == 0:
         return y, scratch
     strides = [v.stride(i) for v in (xh, dt, bh, ch) for i in range(3)]
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        rc = LIBRARY.load().ssd_scan_tc(
-            xh.data_ptr(), dt.data_ptr(), a.data_ptr(), bh.data_ptr(),
-            ch.data_ptr(), y.data_ptr(),
-            *(v.data_ptr() for v in scratch.values()), b, t, h, g, p, n,
-            chunk, *strides, a.stride(0), last_step, stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed (tc): cudaError "
-                           f"{rc}")
+    LIBRARY.launch(
+        "ssd_scan_tc", xh.device, xh.data_ptr(), dt.data_ptr(), a.data_ptr(),
+        bh.data_ptr(), ch.data_ptr(), y.data_ptr(),
+        *(v.data_ptr() for v in scratch.values()), b, t, h, g, p, n, chunk,
+        *strides, a.stride(0), last_step)
     return y, scratch
 
 
@@ -181,8 +159,7 @@ def ssd_scan_fwd(xh, dt, a, bh, ch, *, chunk: int, route=None):
                          "(see choose_route)")
     if route == "tc":
         y = _launch_tc(xh, dt, a, bh, ch, chunk, 4)[0]
-        LAUNCHES["ssd"] += 1
-        LAUNCHES["ssd_tc"] += 1
+        LAUNCHES.add("ssd", "ssd_tc")
         return y
     b, t, h, p = xh.shape
     g, n = bh.shape[2], bh.shape[3]
@@ -190,15 +167,11 @@ def ssd_scan_fwd(xh, dt, a, bh, ch, *, chunk: int, route=None):
     if b == 0 or t == 0:
         return y
     strides = [v.stride(i) for v in (xh, dt, bh, ch) for i in range(3)]
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        rc = LIBRARY.load().ssd_scan_fwd(
-            xh.data_ptr(), dt.data_ptr(), a.data_ptr(), bh.data_ptr(),
-            ch.data_ptr(), y.data_ptr(), b, t, h, g, p, n, chunk, *strides,
-            a.stride(0), stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {rc}")
-    LAUNCHES["ssd"] += 1
+    LIBRARY.launch(
+        "ssd_scan_fwd", xh.device, xh.data_ptr(), dt.data_ptr(),
+        a.data_ptr(), bh.data_ptr(), ch.data_ptr(), y.data_ptr(), b, t, h, g,
+        p, n, chunk, *strides, a.stride(0))
+    LAUNCHES.add("ssd")
     return y
 
 
@@ -217,5 +190,5 @@ def ssd_tc_steps(xh, dt, a, bh, ch, *, chunk: int, last_step: int = 4):
     if last_step not in (1, 2, 3, 4):
         raise ValueError(f"last_step {last_step} not in 1..4")
     y, scratch = _launch_tc(xh, dt, a, bh, ch, chunk, last_step)
-    LAUNCHES["ssd_steps"] += 1
+    LAUNCHES.add("ssd_steps")
     return dict(y=y, **scratch)

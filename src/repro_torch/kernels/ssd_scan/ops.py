@@ -1,9 +1,13 @@
 """Public SSD-scan op on the model's layout: xh [B,T,H,P], dt [B,T,H],
 a [H], bh/ch [B,T,G,N] -> y [B,T,H,P] (no D skip term).
 
-A CPU tensor gets the plain PyTorch version (`ref.ssd_chunk_scan_streaming`,
-the model's form), chosen by the tensors' device only (a meta tensor too:
-the dry-run's shapes); a CUDA tensor gets the kernel (`kernel.py`) or an
+While autograd records a gradient through any input, the op returns the
+plain PyTorch version (`ref.ssd_chunk_scan_streaming`, the model's
+differentiable form) on the tensors as given, whatever their device,
+unchecked: the kernel has no backward (`kernels/build.py::needs_grad`, the
+rule every Mamba2 op follows).  Otherwise a CPU tensor gets the plain
+version, chosen by the tensors' device only (a meta tensor too: the
+dry-run's shapes); a CUDA tensor gets the kernel (`kernel.py`) or an
 error, never the plain version.  Unlike the reference's wrapper, no repeat of B/C to H heads, no dA tensor and no
 transpose to [B*H, T, .] is made: the kernel reads the layout as it is.
 DTensor inputs run per rank on their local shards
@@ -18,12 +22,15 @@ import functools
 from torch.distributed.tensor import DTensor
 
 from ...parallel import local_shards
+from ..build import needs_grad
 from . import kernel
 from .ref import ssd_chunk_scan_streaming
 
 
 def ssd_scan(xh, dt, a, bh, ch, *, chunk: int = 128):
     """xh: [B,T,H,P]; dt: [B,T,H]; a: [H]; bh/ch: [B,T,G,N] -> [B,T,H,P]."""
+    if needs_grad(xh, dt, a, bh, ch):
+        return ssd_chunk_scan_streaming(xh, dt, a, bh, ch, chunk)
     if isinstance(xh, DTensor):
         return _on_local_shards(xh, dt, a, bh, ch, chunk)
     kernel.check_inputs(xh, dt, a, bh, ch, chunk=chunk)

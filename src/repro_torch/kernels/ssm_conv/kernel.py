@@ -4,31 +4,25 @@
 in ~21 ATen launches: from in_proj's output `zxbcdt` [B, T, 2 di + 2 G N +
 H], read in place through its strides (no split, no concat), the causal
 depthwise conv of its x, B and C columns with bias and SiLU, in float32,
-and dt's softplus.  The source is compiled by `nvcc` at first use
-(`kernels/build.py`) and loaded with `ctypes`; `ssm_conv_fwd` launches on
-PyTorch's current stream and counts its launches in `LAUNCHES["fused"]`.
+and dt's softplus.  The source is built, loaded and launched through
+`kernels/build.py`; `LAUNCHES["fused"]` counts the launches.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
 
 import torch
 
-from ..build import SM90A, CudaLibrary
+from ..build import (SM90A, CudaLibrary, Launches, aligned, cuda_only,
+                     forward_only)
 
 SUPPORTED_K = (4,)         # conv taps: every configuration's d_conv
 DTYPES = (torch.bfloat16, torch.float32)
-VEC_ALIGN = 16             # bytes: the alignment of its vector accesses
 
 #: kernel launches since import (or the last `reset_launches`)
-LAUNCHES: Dict[str, int] = {"fused": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = Launches("fused")
+reset_launches = LAUNCHES.reset
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -84,17 +78,14 @@ def vector_ok(zxbcdt, *, d_inner: int, gn: int) -> bool:
     """Whether the kernel may read and write 4 channels at once (8 bytes of
     bf16 or 16 of float32 in, 16 bytes out): the conv's first column of
     zxbcdt at a 16-byte-aligned address, zxbcdt's batch and time strides
-    (of dims longer than 1) multiples of 16 bytes, and C = d_inner + 2 gn a
-    multiple of 4 (each float32 output row 16-byte aligned).  The model
-    reaches both answers: mamba2-2.7b's and zamba2-2.7b's layers are True,
-    the reduced models at heads of 64 (H = 2, float32 rows of 514 columns,
-    2,056 bytes) False.  Pure Python, no launch."""
-    size = zxbcdt.element_size()
-    if (zxbcdt.data_ptr() + d_inner * size) % VEC_ALIGN \
-            or (d_inner + 2 * gn) % 4:
-        return False
-    return all(n == 1 or st * size % VEC_ALIGN == 0
-               for n, st in zip(zxbcdt.shape[:2], zxbcdt.stride()[:2]))
+    (of dims longer than 1) positive multiples of 16 bytes (`aligned`),
+    and C = d_inner + 2 gn a multiple of 4 (each float32 output row
+    16-byte aligned).  The model reaches both answers: mamba2-2.7b's and
+    zamba2-2.7b's layers are True, the reduced models at heads of 64 (H =
+    2, float32 rows of 514 columns, 2,056 bytes) False.  Pure Python, no
+    launch."""
+    return (d_inner + 2 * gn) % 4 == 0 and aligned(
+        zxbcdt, offset=d_inner * zxbcdt.element_size())
 
 
 def ssm_conv_fwd(zxbcdt, conv_w, conv_b, dt_bias, *, d_inner: int, gn: int):
@@ -104,12 +95,8 @@ def ssm_conv_fwd(zxbcdt, conv_w, conv_b, dt_bias, *, d_inner: int, gn: int):
     zero history before t = 0; dt = softplus(the last H columns + dt_bias).
     Forward only: raises when autograd would need a gradient through it."""
     check_inputs(zxbcdt, conv_w, conv_b, dt_bias, d_inner=d_inner, gn=gn)
-    if zxbcdt.device.type != "cuda":
-        raise ValueError(f"no ssm_conv kernel for device {zxbcdt.device}")
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (zxbcdt, conv_w, conv_b, dt_bias)):
-        raise RuntimeError("the ssm_conv kernel has no backward; call it "
-                           "under torch.no_grad()")
+    cuda_only("ssm_conv", zxbcdt.device)
+    forward_only("ssm_conv", zxbcdt, conv_w, conv_b, dt_bias)
     b, t, _ = zxbcdt.shape
     c, h = d_inner + 2 * gn, dt_bias.shape[0]
     f32 = dict(dtype=torch.float32, device=zxbcdt.device)
@@ -119,16 +106,12 @@ def ssm_conv_fwd(zxbcdt, conv_w, conv_b, dt_bias, *, d_inner: int, gn: int):
         return out, dt
     size = zxbcdt.element_size()
     base = zxbcdt.data_ptr()
-    with torch.cuda.device(zxbcdt.device):
-        stream = torch.cuda.current_stream(zxbcdt.device).cuda_stream
-        rc = LIBRARY.load().ssm_conv_fwd(
-            base + d_inner * size, base + (2 * d_inner + 2 * gn) * size,
-            conv_w.data_ptr(), conv_b.data_ptr(), dt_bias.data_ptr(),
-            out.data_ptr(), dt.data_ptr(),
-            int(zxbcdt.dtype == torch.bfloat16),
-            int(vector_ok(zxbcdt, d_inner=d_inner, gn=gn)), b, t, c, h,
-            zxbcdt.stride(0), zxbcdt.stride(1), stream)
-    if rc != 0:
-        raise RuntimeError(f"ssm_conv kernel launch failed: cudaError {rc}")
-    LAUNCHES["fused"] += 1
+    LIBRARY.launch(
+        "ssm_conv_fwd", zxbcdt.device, base + d_inner * size,
+        base + (2 * d_inner + 2 * gn) * size, conv_w.data_ptr(),
+        conv_b.data_ptr(), dt_bias.data_ptr(), out.data_ptr(), dt.data_ptr(),
+        int(zxbcdt.dtype == torch.bfloat16),
+        int(vector_ok(zxbcdt, d_inner=d_inner, gn=gn)), b, t, c, h,
+        zxbcdt.stride(0), zxbcdt.stride(1))
+    LAUNCHES.add("fused")
     return out, dt

@@ -4,11 +4,15 @@ zxbcdt [B, T, 2 di + 2 G N + H], conv_w [K, C], conv_b [C], dt_bias [H]
 conv32 [B, T, C] float32, C = di + 2 G N, the SiLU of the causal conv of
 x, B and C; dt [B, T, H] float32.
 
-A CPU or meta tensor gets the plain PyTorch version (`ref.conv_chain`),
-chosen by the tensor's device only; a CUDA tensor gets the kernel
-(`kernel.py`) or an error, never the plain version.  A DTensor runs per
-rank on its local shards (`parallel/local_shards.py`), each taking the
-path its device names: a batch shard stays, and any other shard of zxbcdt
+While autograd records a gradient through any input, the op returns the
+plain PyTorch version (`ref.conv_chain`, differentiable) on the tensors as
+given, whatever their device: the kernel has no backward
+(`kernels/build.py::needs_grad`, the rule every Mamba2 op follows).
+Otherwise a CPU or meta tensor gets the plain version, chosen by the
+tensor's device only; a CUDA tensor gets the kernel (`kernel.py`) or an
+error, never the plain version.  A DTensor runs per rank on its local
+shards (`parallel/local_shards.py`), each taking the path its device
+names: a batch shard stays, and any other shard of zxbcdt
 (its last dim, which interleaves z, x, B, C and dt) is redistributed to
 replicated first, as are conv_w, conv_b and dt_bias.
 """
@@ -19,12 +23,15 @@ import functools
 from torch.distributed.tensor import DTensor
 
 from ...parallel import local_shards
+from ..build import needs_grad
 from . import kernel
 from .ref import conv_chain
 
 
 def ssm_conv(zxbcdt, conv_w, conv_b, dt_bias, *, d_inner: int, gn: int):
     """-> (z, conv32, dt) as the module says."""
+    if needs_grad(zxbcdt, conv_w, conv_b, dt_bias):
+        return conv_chain(zxbcdt, conv_w, conv_b, dt_bias, d_inner, gn)
     if isinstance(zxbcdt, DTensor):
         return _on_local_shards(zxbcdt, conv_w, conv_b, dt_bias, d_inner, gn)
     if zxbcdt.device.type in ("cpu", "meta"):

@@ -7,33 +7,26 @@ through their strides, the D skip, the SiLU gate and the RMS norm, with
 the eager chain's rounding points; persistent blocks, each row staged in
 shared memory by bulk copies a row ahead of its arithmetic.  An input
 whose addresses do not allow those copies (`vector_ok`) is handed over as
-a contiguous copy.  The source
-is compiled by `nvcc` at first use (`kernels/build.py`) and loaded with
-`ctypes`; `ssm_gate_fwd` launches on PyTorch's current stream and counts
-its launches in `LAUNCHES["fused"]`.
+a contiguous copy.  The source is built, loaded and launched through
+`kernels/build.py`; `LAUNCHES["fused"]` counts the launches.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
 
 import torch
 
-from ..build import SM90A, CudaLibrary
+from ..build import (SM90A, CudaLibrary, Launches, aligned, cuda_only,
+                     forward_only)
 
 DTYPES = (torch.bfloat16, torch.float32)
-VEC_ALIGN = 16             # bytes: the alignment of its bulk copies
 CH = 8                     # channels a chunk (16 bytes of bf16)
 MAX_D_INNER = 16384        # csrc/ssm_gate.cu: MAX_ITEMS * MAX_THREADS * CH
 
 #: kernel launches since import (or the last `reset_launches`)
-LAUNCHES: Dict[str, int] = {"fused": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = Launches("fused")
+reset_launches = LAUNCHES.reset
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -96,24 +89,20 @@ def check_inputs(y, xh, D, z, out_norm, *, dtype) -> None:
                          "out_norm must be contiguous")
 
 
-def _fits(v) -> bool:
-    """16-byte aligned, and so are its batch and time strides (of dims
-    longer than 1; out_norm has neither)."""
-    return v.data_ptr() % VEC_ALIGN == 0 and all(
-        n == 1 or st * v.element_size() % VEC_ALIGN == 0
-        for n, st in zip(v.shape[:-1][:2], v.stride()[:2]))
+#: whether the kernel may read one input in place
+_fits = aligned
 
 
 def vector_ok(y, xh, z, out_norm) -> bool:
     """Whether the kernel may read y, xh, z and out_norm in place: every
-    start 16-byte aligned, and the batch and time strides (of dims longer
-    than 1) of y, xh and z multiples of 16 bytes, as its bulk copies and
-    16-byte accesses need.  Where not, `ssm_gate_fwd` hands it a
-    contiguous copy of each input that does not fit.  The model reaches
-    both answers: mamba2-2.7b's, zamba2-2.7b's and granite-4.0-h-small's
-    layers are True, the reduced models at heads of 64 (H = 2: in_proj's
-    rows of 290 columns, 580 bytes of bf16) False.  Pure Python, no
-    launch."""
+    start 16-byte aligned, and every stride but the last (of dims longer
+    than 1) of y, xh and z a positive multiple of 16 bytes (`aligned`), as
+    its bulk copies and 16-byte accesses need.  Where not, `ssm_gate_fwd`
+    hands it a contiguous copy of each input that does not fit.  The model
+    reaches both answers: mamba2-2.7b's, zamba2-2.7b's and
+    granite-4.0-h-small's layers are True, the reduced models at heads of
+    64 (H = 2: in_proj's rows of 290 columns, 580 bytes of bf16) False.
+    Pure Python, no launch."""
     return all(_fits(v) for v in (y, xh, z, out_norm))
 
 
@@ -131,26 +120,17 @@ def ssm_gate_fwd(y, xh, D, z, out_norm, *, eps: float, dtype):
     out_norm, eps) with `ref.gate_chain`'s rounding points.  Forward only:
     raises when autograd would need a gradient through it."""
     check_inputs(y, xh, D, z, out_norm, dtype=dtype)
-    if y.device.type != "cuda":
-        raise ValueError(f"no ssm_gate kernel for device {y.device}")
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (y, xh, D, z, out_norm)):
-        raise RuntimeError("the ssm_gate kernel has no backward; call it "
-                           "under torch.no_grad()")
+    cuda_only("ssm_gate", y.device)
+    forward_only("ssm_gate", y, xh, D, z, out_norm)
     b, t, h, p = y.shape
     out = torch.empty((b, t, h * p), dtype=dtype, device=y.device)
     if b == 0 or t == 0:
         return out
     y, xh, z, out_norm = (_fitting(v) for v in (y, xh, z, out_norm))
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = LIBRARY.load().ssm_gate_fwd(
-            y.data_ptr(), xh.data_ptr(), z.data_ptr(), D.data_ptr(),
-            out_norm.data_ptr(), out.data_ptr(),
-            int(dtype == torch.bfloat16), b, t, h * p, p, eps,
-            y.stride(0), y.stride(1), xh.stride(0), xh.stride(1),
-            z.stride(0), z.stride(1), stream)
-    if rc != 0:
-        raise RuntimeError(f"ssm_gate kernel launch failed: cudaError {rc}")
-    LAUNCHES["fused"] += 1
+    LIBRARY.launch(
+        "ssm_gate_fwd", y.device, y.data_ptr(), xh.data_ptr(), z.data_ptr(),
+        D.data_ptr(), out_norm.data_ptr(), out.data_ptr(),
+        int(dtype == torch.bfloat16), b, t, h * p, p, eps, y.stride(0),
+        y.stride(1), xh.stride(0), xh.stride(1), z.stride(0), z.stride(1))
+    LAUNCHES.add("fused")
     return out

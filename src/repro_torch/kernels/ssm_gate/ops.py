@@ -4,11 +4,15 @@ the conv's output), D [H], in_proj's z columns [B, T, H P] and out_norm
 [H P] -> rms_norm((y + xh D) in `dtype` * silu(z), out_norm, eps), a new
 [B, T, H P] tensor of `dtype`.
 
-A CPU or meta tensor gets the plain PyTorch version (`ref.gate_chain`),
-chosen by the tensor's device only; a CUDA tensor gets the kernel
-(`kernel.py`) or an error, never the plain version.  A DTensor runs per
-rank on its local shards (`parallel/local_shards.py`), each taking the
-path its device names: a batch shard of y stays, and any other shard
+While autograd records a gradient through any input, the op returns the
+plain PyTorch version (`ref.gate_chain`, differentiable) on the tensors as
+given, whatever their device: the kernel has no backward
+(`kernels/build.py::needs_grad`, the rule every Mamba2 op follows).
+Otherwise a CPU or meta tensor gets the plain version, chosen by the
+tensor's device only; a CUDA tensor gets the kernel (`kernel.py`) or an
+error, never the plain version.  A DTensor runs per rank on its local
+shards (`parallel/local_shards.py`), each taking the path its device
+names: a batch shard of y stays, and any other shard
 (heads or channels, over which the RMS norm reduces) is redistributed to
 replicated first, as are D and out_norm.
 """
@@ -19,12 +23,15 @@ import functools
 from torch.distributed.tensor import DTensor
 
 from ...parallel import local_shards
+from ..build import needs_grad
 from . import kernel
 from .ref import gate_chain
 
 
 def ssm_gate(y, xh, D, z, out_norm, *, eps: float, dtype):
     """-> the gated, normalised [B, T, H P] as the module says."""
+    if needs_grad(y, xh, D, z, out_norm):
+        return gate_chain(y, xh, D, z, out_norm, eps, dtype)
     if isinstance(y, DTensor):
         return _on_local_shards(y, xh, D, z, out_norm, eps, dtype)
     if y.device.type in ("cpu", "meta"):

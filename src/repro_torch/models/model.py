@@ -296,9 +296,10 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, Any], *,
     stack, as the reference's layer scans take it (the hybrid's shared
     block is not rematerialised there either); it changes memory, not
     values, and only while gradients are recorded.  Runs under the
-    caller's grad mode; the flash and SSD kernels have no backward, so
-    serving runs under `no_grad` (the Mamba2 layer takes its plain scan
-    when gradients are recorded, `ssm.mamba2_forward`).
+    caller's grad mode.  No kernel has a backward: the flash kernel and
+    the grouped expert product raise under autograd, so serving runs under
+    `no_grad`; the Mamba2 ops take their plain versions while gradients
+    are recorded (`kernels/build.py::needs_grad`, `ssm.mamba2_forward`).
 
     The call records the spans of `obs.MODEL_SPANS` into the ambient
     tracer (`obs.current_tracer()`, read once a call; `NULL_TRACER`

@@ -1,23 +1,18 @@
 """Mamba2 / SSD (state-space duality) block [arXiv:2405.21060].
 
-The port of the JAX package's `models/ssm.py`.  Prefill runs the chunked
-SSD scan through `kernels/ssd_scan/ops.py::ssd_scan` (its plain version
-`ssd_chunk_scan_streaming` for CPU tensors, the CUDA kernel for CUDA
-tensors); training runs the model's own differentiable scan,
-`ssd_chunk_scan_streaming`, as the reference's model does in every mode
-(the kernel has no backward); decode is the O(1) recurrent state update.
-The plain SSD functions live in `kernels/ssd_scan/ref.py` and are
-re-exported here.
-
-The conv chain between in_proj and the scan (split, causal depthwise conv
-with bias and SiLU, float32 cast, dt's softplus) runs through
-`kernels/ssm_conv/ops.py::ssm_conv` (its plain version `conv_chain` for
-CPU tensors, one CUDA kernel for CUDA tensors) and, while gradients are
-recorded, on `conv_chain` itself; the plain conv functions live in
-`kernels/ssm_conv/ref.py`.  The gate chain after the scan (the D skip,
-cast, SiLU gate and RMS norm) runs the same way through
-`kernels/ssm_gate/ops.py::ssm_gate` (one CUDA kernel for CUDA tensors) or,
-while gradients are recorded, `kernels/ssm_gate/ref.py::gate_chain`.
+The port of the JAX package's `models/ssm.py`.  Prefill and training run
+three ops in turn: the conv chain between in_proj and the scan (split,
+causal depthwise conv with bias and SiLU, float32 cast, dt's softplus),
+`kernels/ssm_conv/ops.py::ssm_conv`; the chunked SSD scan,
+`kernels/ssd_scan/ops.py::ssd_scan`; and the gate chain after it (the D
+skip, cast, SiLU gate and RMS norm), `kernels/ssm_gate/ops.py::ssm_gate`.
+Each op chooses for itself between its CUDA kernel and its plain,
+differentiable version (`conv_chain`, `ssd_chunk_scan_streaming`,
+`gate_chain`, in each package's `ref.py`), by one rule: the plain version
+while autograd records a gradient through an input or for CPU and meta
+tensors, the kernel for CUDA tensors (`kernels/build.py::needs_grad`).
+Decode is the O(1) recurrent state update, with its own conv.  The plain
+SSD functions are re-exported here.
 
 Layout: x [B, T, D] -> in_proj -> (z, xc, B, C, dt); causal depthwise conv
 on (xc, B, C); SSD over heads H = d_inner / headdim with scalar A per head;
@@ -36,10 +31,8 @@ from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import (segsum, ssd_chunk_scan,  # noqa: F401
                                     ssd_chunk_scan_streaming, ssd_reference)
 from ..kernels.ssm_conv import ops as conv_ops
-from ..kernels.ssm_conv.ref import (causal_conv, conv_chain, dt_softplus,
-                                    split_proj)
+from ..kernels.ssm_conv.ref import causal_conv, dt_softplus, split_proj
 from ..kernels.ssm_gate import ops as gate_ops
-from ..kernels.ssm_gate.ref import gate_chain
 from ..obs.trace import NULL_TRACER
 from .layers import ParamInit, fold_tokens, rms_norm, shard, split_dim
 
@@ -75,12 +68,9 @@ def init_mamba2(init: ParamInit, cfg: ModelConfig) -> Mamba2:
 
 def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
     """x: [B,T,D] -> [B,T,D].  The conv chain, the SSD scan and the gate
-    chain each run, by grad mode only and never by a failure: while
-    gradients are recorded for any of their inputs, on the differentiable
-    `conv_chain`, `ssd_chunk_scan_streaming` and `gate_chain` (the
-    reference's chains and scan, in every mode there); otherwise on
-    `conv_ops.ssm_conv`, `ssd_ops.ssd_scan` and `gate_ops.ssm_gate` (CUDA
-    kernels for CUDA tensors, which raise under autograd).  The scan
+    chain run through `conv_ops.ssm_conv`, `ssd_ops.ssd_scan` and
+    `gate_ops.ssm_gate`, each of which takes its plain, differentiable
+    version while gradients are recorded (the module's rule).  The scan
     runs on float32 views of the conv output (xh, B and C are strided
     slices of one float32 tensor).  `tracer` records the spans "ssm.conv"
     (in_proj's output through dt's softplus), "ssm.scan" and "ssm.gate"
@@ -91,34 +81,19 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x, *, tracer=NULL_TRACER):
     g, n = cfg.ssm_ngroups, cfg.d_state
     h, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     with tracer.span("ssm.conv"):
-        conv_args = (zxbcdt, p.conv_w, p.conv_b, p.dt_bias)
-        if torch.is_grad_enabled() and \
-                any(v.requires_grad for v in conv_args):
-            z, conv32, dt = conv_chain(*conv_args, di, g * n)
-        else:
-            z, conv32, dt = conv_ops.ssm_conv(*conv_args, d_inner=di,
-                                              gn=g * n)
+        z, conv32, dt = conv_ops.ssm_conv(zxbcdt, p.conv_w, p.conv_b,
+                                          p.dt_bias, d_inner=di, gn=g * n)
         xh = shard(split_dim(conv32[..., :di], -1, (h, pdim)),
                    "batch", None, "ssm_heads", None)
         Bh = split_dim(conv32[..., di:di + g * n], -1, (g, n))
         Ch = split_dim(conv32[..., di + g * n:], -1, (g, n))
         A = -torch.exp(p.A_log.float())
-    scan_args = (xh, dt, A, Bh, Ch)
     with tracer.span("ssm.scan"):
-        if torch.is_grad_enabled() and \
-                any(v.requires_grad for v in scan_args):
-            y = ssd_chunk_scan_streaming(*scan_args, cfg.chunk)
-        else:
-            y = ssd_ops.ssd_scan(*scan_args, chunk=cfg.chunk)
+        y = ssd_ops.ssd_scan(xh, dt, A, Bh, Ch, chunk=cfg.chunk)
     with tracer.span("ssm.gate"):
         y = shard(y, "batch", None, "ssm_heads", None)
-        gate_args = (y, xh, p.D, z, p.out_norm)
-        if torch.is_grad_enabled() and \
-                any(v.requires_grad for v in gate_args):
-            y = gate_chain(*gate_args, cfg.norm_eps, x.dtype)
-        else:
-            y = gate_ops.ssm_gate(*gate_args, eps=cfg.norm_eps,
-                                  dtype=x.dtype)
+        y = gate_ops.ssm_gate(y, xh, p.D, z, p.out_norm, eps=cfg.norm_eps,
+                              dtype=x.dtype)
     return shard(fold_tokens(y, p.out_proj) @ p.out_proj,
                  "batch", "seq", "embed")
 

@@ -442,7 +442,7 @@ def test_launch_counts_exact_under_threads():
     try:
         kernel.reset_launches()
         threads = [threading.Thread(target=lambda v=v: [
-            kernel._count_launch(v) for _ in range(n_each)])
+            kernel.LAUNCHES.add(v) for _ in range(n_each)])
             for v in ("single", "multi") * (n_threads // 2)]
         for t in threads:
             t.start()

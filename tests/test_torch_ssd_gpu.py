@@ -203,8 +203,13 @@ def test_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ops.ssd_scan(*args, chunk=128)
     args[0] = args[0].requires_grad_(True)
+    before = dict(kernel.LAUNCHES)
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.ssd_scan(*args, chunk=16)
+        kernel.ssd_scan_fwd(*args, chunk=16)
+    got = ops.ssd_scan(*args, chunk=16)     # the plain scan
+    assert got.requires_grad and torch.equal(
+        got, ref.ssd_chunk_scan_streaming(*args, 16))
+    assert kernel.LAUNCHES == before
 
 
 @pytest.mark.gpu

@@ -16,7 +16,9 @@ import torch
 from repro.kernels.ssd_scan import ops as jax_ops
 from repro.kernels.ssd_scan import ref as jax_kref
 from repro.models import ssm as jax_ssm
+from repro_torch.configs import reduced_config
 from repro_torch.kernels.ssd_scan import kernel, ops, ref
+from repro_torch.models import init_model, ssm
 
 SSD_SHAPES = [
     (2, 128, 4, 8, 2, 16, 32), (1, 256, 2, 64, 1, 128, 128),
@@ -133,6 +135,67 @@ def test_op_reads_strided_views():
     want = ops.ssd_scan(xh.contiguous(), dt, a, bh.contiguous(),
                         ch.contiguous(), chunk=q)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor whose device reads CUDA: it takes the op's route to the
+    kernel wrapper (stubbed below) on a host without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_grad_mode_picks_the_path(monkeypatch, grad):
+    """The op decides by grad mode: while gradients are recorded it calls
+    `ssd_chunk_scan_streaming` and never the kernel, on a CUDA tensor too,
+    and the gradients reach the layer's A_log and dt_bias; otherwise a
+    CUDA tensor goes to the kernel wrapper, once.  The model calls the op
+    once a layer either way, and the values agree."""
+    cfg = reduced_config("mamba2-2.7b")
+    p = init_model(cfg, torch.Generator().manual_seed(0),
+                   device="cpu").layers[0].ssm
+    op_calls, chain = [], []
+    real_op, real_chain = ops.ssd_scan, ops.ssd_chunk_scan_streaming
+
+    def op_spy(*a, **k):
+        op_calls.append(a[0])
+        return real_op(*a, **k)
+
+    def chain_spy(*a):
+        chain.append(a[0])
+        return real_chain(*a)
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel was called")
+
+    monkeypatch.setattr(ops, "ssd_scan", op_spy)
+    monkeypatch.setattr(ops, "ssd_chunk_scan_streaming", chain_spy)
+    monkeypatch.setattr(kernel, "ssd_scan_fwd", refuse)
+    x = torch.randn(2, 32, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.set_grad_enabled(grad):
+        y = ssm.mamba2_forward(p, cfg, x)
+    assert len(op_calls) == len(chain) == 1 and chain[0] is op_calls[0]
+    assert y.requires_grad == grad
+    if grad:
+        y.sum().backward()
+        assert p.A_log.grad is not None and p.dt_bias.grad is not None
+        p.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            torch.testing.assert_close(ssm.mamba2_forward(p, cfg, x),
+                                       y.detach(), rtol=0, atol=0)
+    route = []
+    monkeypatch.setattr(ops, "ssd_chunk_scan_streaming",
+                        lambda *a: route.append("plain") or a[0])
+    monkeypatch.setattr(kernel, "ssd_scan_fwd",
+                        lambda *a, **k: route.append("kernel") or a[0])
+    card = [torch.from_numpy(v).as_subclass(_OnCard).requires_grad_(True)
+            for v in _inputs(1, 32, 2, 16, 1, 16)]
+    with torch.set_grad_enabled(grad):
+        ops.ssd_scan(*card, chunk=16)
+    assert route == (["plain"] if grad else ["kernel"])
 
 
 def _zeros(b, t, h, p, g, n):

@@ -1,9 +1,9 @@
 """Mamba2's conv chain op (`repro_torch.kernels.ssm_conv`) on the CPU: its
 plain version equals the eager chain `mamba2_forward` ran before the op
-bit for bit; the model sends a forward recorded by autograd and decode to
-the eager chain, never to the op; a DTensor runs the op on its local
-tensors; the wrapper's checks and its 16-byte-access rule are pure Python
-and run here.  The kernel itself
+bit for bit; the op sends a forward recorded by autograd to the plain
+chain, never to the kernel; decode keeps its own conv; a DTensor runs the
+op on its local tensors; the wrapper's checks and its 16-byte-access rule
+are pure Python and run here.  The kernel itself
 runs on the card (tests/test_torch_ssm_conv_gpu.py); the layer against the
 JAX package is tests/test_torch_ssm.py.  No JAX here."""
 import pytest
@@ -90,25 +90,38 @@ def layer():
     return cfg, model.layers[0].ssm
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor whose device reads CUDA: it takes the op's route to the
+    kernel wrapper (stubbed below) on a host without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
 @pytest.mark.parametrize("grad", [False, True])
 def test_grad_mode_picks_the_path(layer, op_calls, no_kernel, monkeypatch,
                                   grad):
-    """A recorded forward takes `conv_chain` and never the op; otherwise
-    the op runs once a layer; the values agree either way."""
+    """The op decides by grad mode: while gradients are recorded it calls
+    `conv_chain` and never the kernel, on a CUDA tensor too, and the
+    gradients reach the layer's weights; otherwise a CUDA tensor goes to
+    the kernel wrapper, once.  The model calls the op once a layer either
+    way, and the values agree."""
     cfg, p = layer
     chain = []
-    real = ssm.conv_chain
+    real = ops.conv_chain
 
     def spy(*a):
         chain.append(a[0])
         return real(*a)
 
-    monkeypatch.setattr(ssm, "conv_chain", spy)
+    monkeypatch.setattr(ops, "conv_chain", spy)
     x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
     with torch.set_grad_enabled(grad):
         y = ssm.mamba2_forward(p, cfg, x)
-    assert (len(chain), len(op_calls)) == ((1, 0) if grad else (0, 1))
+    assert len(op_calls) == len(chain) == 1 and chain[0] is op_calls[0]
+    assert not no_kernel
     assert y.requires_grad == grad
     if grad:
         y.sum().backward()
@@ -117,7 +130,16 @@ def test_grad_mode_picks_the_path(layer, op_calls, no_kernel, monkeypatch,
         with torch.no_grad():
             torch.testing.assert_close(ssm.mamba2_forward(p, cfg, x),
                                        y.detach(), rtol=0, atol=0)
-    assert not no_kernel
+    route = []
+    monkeypatch.setattr(ops, "conv_chain",
+                        lambda *a: route.append("plain") or a[:3])
+    monkeypatch.setattr(kernel, "ssm_conv_fwd",
+                        lambda *a, **k: route.append("kernel") or a[:2])
+    card = [v.as_subclass(_OnCard).requires_grad_(True)
+            for v in _inputs(1, 4, 16, 4, 2)]
+    with torch.set_grad_enabled(grad):
+        ops.ssm_conv(*card, d_inner=16, gn=4)
+    assert route == (["plain"] if grad else ["kernel"])
 
 
 def test_decode_keeps_its_own_conv(layer, op_calls, no_kernel):

@@ -159,7 +159,11 @@ def test_kernel_refuses_what_it_does_not_take(card):
                          b, dtb, d_inner=16, gn=4)
     w.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.ssm_conv(z, w, b, dtb, d_inner=16, gn=4)
+        kernel.ssm_conv_fwd(z, w, b, dtb, d_inner=16, gn=4)
+    got = ops.ssm_conv(z, w, b, dtb, d_inner=16, gn=4)   # the plain chain
+    for a, want in zip(got, ref.conv_chain(z, w, b, dtb, 16, 4)):
+        assert torch.equal(a, want)
+    assert got[1].requires_grad
     assert kernel.LAUNCHES == before
 
 

@@ -1,8 +1,8 @@
 """Mamba2's gate chain op (`repro_torch.kernels.ssm_gate`) on the CPU: its
 plain version equals the eager lines `mamba2_forward` ran before the op
 bit for bit; the op sends CPU and meta inputs to it, and runs on a
-DTensor's local tensors; the model sends a forward recorded by autograd to
-the plain chain, never to the op, inside the "ssm.gate" span; the
+DTensor's local tensors, and sends a forward recorded by autograd to the
+plain chain, never to the kernel; the op runs inside the "ssm.gate" span; the
 wrapper's checks, its 16-byte-access rule and its copies of what breaks
 that rule run here.  The kernel itself runs on the card
 (tests/test_torch_ssm_gate_gpu.py); the layer against the JAX package is
@@ -154,25 +154,38 @@ def op_calls(monkeypatch):
     return calls
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor whose device reads CUDA: it takes the op's route to the
+    kernel wrapper (stubbed below) on a host without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
 @pytest.mark.parametrize("grad", [False, True])
 def test_grad_mode_picks_the_path(layer, op_calls, no_kernel, monkeypatch,
                                   grad):
-    """A recorded forward takes `gate_chain` and never the op; otherwise
-    the op runs once a layer; the values agree either way."""
+    """The op decides by grad mode: while gradients are recorded it calls
+    `gate_chain` and never the kernel, on a CUDA tensor too, and the
+    gradients reach the layer's weights; otherwise a CUDA tensor goes to
+    the kernel wrapper, once.  The model calls the op once a layer either
+    way, and the values agree."""
     cfg, p = layer
     chain = []
-    real = ssm.gate_chain
+    real = ops.gate_chain
 
     def spy(*a):
         chain.append(a[0])
         return real(*a)
 
-    monkeypatch.setattr(ssm, "gate_chain", spy)
+    monkeypatch.setattr(ops, "gate_chain", spy)
     x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
     with torch.set_grad_enabled(grad):
         y = ssm.mamba2_forward(p, cfg, x)
-    assert (len(chain), len(op_calls)) == ((1, 0) if grad else (0, 1))
+    assert len(op_calls) == len(chain) == 1 and chain[0] is op_calls[0]
+    assert not no_kernel
     assert y.requires_grad == grad
     if grad:
         y.sum().backward()
@@ -181,7 +194,16 @@ def test_grad_mode_picks_the_path(layer, op_calls, no_kernel, monkeypatch,
         with torch.no_grad():
             torch.testing.assert_close(ssm.mamba2_forward(p, cfg, x),
                                        y.detach(), rtol=0, atol=0)
-    assert not no_kernel
+    route = []
+    monkeypatch.setattr(ops, "gate_chain",
+                        lambda *a: route.append("plain") or a[0])
+    monkeypatch.setattr(kernel, "ssm_gate_fwd",
+                        lambda *a, **k: route.append("kernel") or a[0])
+    card = [v.as_subclass(_OnCard).requires_grad_(True)
+            for v in _layout(1, 4, 2, 8, 4)]
+    with torch.set_grad_enabled(grad):
+        ops.ssm_gate(*card, eps=1e-5, dtype=torch.bfloat16)
+    assert route == (["plain"] if grad else ["kernel"])
 
 
 def test_the_op_runs_inside_the_gate_span(layer, monkeypatch):

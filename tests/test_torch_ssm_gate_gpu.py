@@ -174,7 +174,10 @@ def test_kernel_refuses_what_it_does_not_take(card):
                      dtype=torch.bfloat16)
     w.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.ssm_gate(y, xh, D, z, w, eps=EPS, dtype=torch.bfloat16)
+        kernel.ssm_gate_fwd(y, xh, D, z, w, eps=EPS, dtype=torch.bfloat16)
+    got = ops.ssm_gate(y, xh, D, z, w, eps=EPS, dtype=torch.bfloat16)
+    assert got.requires_grad and torch.equal(    # the plain chain
+        got, ref.gate_chain(y, xh, D, z, w, EPS, torch.bfloat16))
     assert kernel.LAUNCHES == before
 
 

@@ -29,7 +29,6 @@ import torch
 from repro_torch.configs import reduced_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.train import train_loop
 from repro_torch.models import REMAT_POLICIES, init_model, lm_loss
 from repro_torch.train import checkpoint as ckpt
@@ -152,7 +151,7 @@ def test_kernel_wrappers_raise_under_autograd(card):
     a = -torch.ones(2, device=card)
     bc = torch.randn(1, 64, 1, 16, device=card)
     with pytest.raises(RuntimeError, match="backward"):
-        ssd_ops.ssd_scan(xh, dt, a, bc, bc, chunk=16)
+        ssd_kernel.ssd_scan_fwd(xh, dt, a, bc, bc, chunk=16)
 
 
 @pytest.mark.gpu
