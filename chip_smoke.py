@@ -9,7 +9,7 @@ Each phase prints one line; any failure exits non-zero, and no phase
 catches its own failure.
 
   1. device   the card's name and power limit (nvidia-smi) and capability
-  2. build    nvcc builds the five kernel libraries from this checkout;
+  2. build    nvcc builds the six kernel libraries from this checkout;
               ptxas's registers and spills and the dynamic shared memory
               of the tensor-core flash kernel at each head dim (64, 80,
               96, 128), and each instantiation's count of HGMMA (wgmma)
@@ -78,8 +78,9 @@ catches its own failure.
   8. serve    smollm-135m at full width (bf16, random weights from a seed):
               (a) the prefill `forward(tokens [4, 2048], logits_mode=
               "last")` with the kernel installed must launch the
-              tensor-core kernel once per layer (30) and nothing else,
-              and match the plain-attention forward; timed by events,
+              tensor-core kernel once per layer (30), the RMS-norm kernel
+              once a norm (61, `norm_launches`) and nothing else, and
+              match the plain-attention forward; timed by events,
               by the host clock (a call's latency and the part of it
               spent enqueueing) and with the device's busy share;
               (b) `ServeEngine(batch=4, max_len=256)` answers 8 requests
@@ -126,7 +127,8 @@ catches its own failure.
               the grouped GEMM 3 times a layer (120), flash once an
               attention layer (4, tensor-core route), the SSD op ("tc"),
               the conv kernel and the gate kernel once a Mamba2 layer
-              (36), and nothing else; each timed as in phase 7, beside
+              (36), the RMS-norm kernel once a norm (81), and nothing
+              else; each timed as in phase 7, beside
               its bound
   9d. gate    the Mamba2 gate-chain kernel (`kernels/ssm_gate`, through
               `ops.ssm_gate`) at mamba2-2.7b's layer [4, 2048] and
@@ -136,12 +138,24 @@ catches its own failure.
               (`ref.gate_chain`) on the same inputs; timed as in phase 7,
               beside its bytes' bound (`gate_bound_ms`) and the eager
               chain's time
+  9e. norm    the RMS-norm kernel (`kernels/rms_norm`, through
+              `ops.rms_norm`) on bf16 x of the residual stream's scale at
+              one call shape of each benchmark cell, phi3-mini-3.8b's [9,
+              896, 3072], mamba2-2.7b's [4, 2048, 2560] and
+              granite-4.0-h-small's [2, 4096, 4096]: one launch a call,
+              within one bf16 ulp of the eager chain (`ref.rms_norm`) on
+              the same inputs; timed as in phase 7, beside its bytes'
+              bound (`norm_bound_ms`) and the eager chain's time.  Every
+              model run on the card outside autograd norms on this
+              kernel, plain-attention references included: this phase
+              is what holds it to the eager chain
  10. ssm      mamba2-2.7b at full width and depth (64 layers, bf16, random
               weights from a CUDA generator seeded with 0): (a) the prefill
               `forward(tokens [4, 2048], logits_mode="last")` must launch
               the SSD op 64 times, all on route "tc", the conv kernel
               (`kernels/ssm_conv`) and the gate kernel (`kernels/ssm_gate`)
-              64 times each, and nothing else
+              64 times each, the RMS-norm kernel 65 times, and nothing
+              else
               (the counters count op calls); timed, with the
               device's busy share; (b) `ServeEngine(batch=4, max_len=256)`
               answers the serve phase's load; (c) with the weights cast to float32 (bf16 rounding
@@ -153,7 +167,8 @@ catches its own failure.
               shared GQA block after every 6, window 4096): the prefill
               [1, 2048] with the flash hook installed calls the SSD op 54
               times, all on route "tc", the conv and gate kernels 54 times
-              each, and the flash kernel never (the window keeps it off, as in the
+              each, the RMS-norm kernel 73 times (54 + 2 x 9 + 1), and
+              the flash kernel never (the window keeps it off, as in the
               reference's `sdpa`); decode over one chunk
               matches the prefill in float32, as in phase 10
  12. service  the DSE service (`DSEService(workers=2)`, a disk cache in a
@@ -187,8 +202,10 @@ catches its own failure.
               prefill [4, 2048] (whisper: frames and tokens both [4,
               2048]) with the flash hook installed must launch the flash
               kernel 24, 28, 12, 0, 0, 32 and 32 times, all on the
-              tensor-core route (phi3's D 96 as two padded panels), and
-              nothing else (`FAMILY_FLASH`), timed as in phase 8; for the
+              tensor-core route (phi3's D 96 as two padded panels)
+              (`FAMILY_FLASH`), the RMS-norm kernel once a norm
+              (`norm_launches`: 49, 57, 0, 249, 82, 65 and 65), and
+              nothing else, timed as in phase 8; for the
               five that launch it, the logits within LOGIT_TOL of plain
               attention's (a miss is a fault, unless the top-k expert
               sets of the two runs show the routing flip that explains
@@ -236,7 +253,8 @@ catches its own failure.
  15. parallel the sharded step builders (`launch/steps.py`) on a (1, 1)
               mesh, smollm-135m at full width and depth: `build_prefill_
               step` at [4, 2048] with the flash hook (30 launches on
-              route "wgmma", each on local shards through `local_map`;
+              route "wgmma" and 61 of the RMS-norm kernel, each on local
+              shards through `local_map`;
               logits within LOGIT_TOL of the unsharded prefill), 8
               `build_decode_step` steps against `decode_step` (each
               within LOGIT_TOL), the host's enqueue time of the sharded
@@ -245,7 +263,7 @@ catches its own failure.
               train_4k on the fake 16 x 16 mesh, one microbatch) and its
               roofline terms
 
-Phase 2 builds the five kernel libraries at once (one nvcc each).  The
+Phase 2 builds the six kernel libraries at once (one nvcc each).  The
 line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
@@ -415,6 +433,14 @@ U_BF16 = 2.0 ** -8
 # of the eager output allowed, as tests/test_torch_ssm_gate_gpu.py allows.
 GATE_SOURCE = "src/repro_torch/kernels/ssm_gate/csrc/ssm_gate.cu"
 GATE_KERNEL_NAME = "ssm_gate_kernel"
+# phase 9e: the residual stream's RMS norm at one call shape of each of the
+# benchmark's three cells (phi3-mini-3.8b's conv-2k, mamba2-2.7b's and
+# granite-4.0-h-small's code-4k), bf16
+NORM_SOURCE = "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu"
+NORM_KERNEL_NAME = "rms_norm_kernel"
+NORM_CASES = ((9, 896, 3072, "phi3-mini-3.8b"), (4, 2048, 2560, SSM_ARCH),
+              (2, 4096, 4096, "granite-4.0-h-small"))
+NORM_EPS = 1e-5
 
 # Granite 4.0-H Small (phase 9c), as the benchmark runs it: its config,
 # its attention layer's flash call at the benchmark's call of 8,192
@@ -488,12 +514,13 @@ def build_phase() -> None:
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.mapspace_eval import kernel
+    from repro_torch.kernels.rms_norm import kernel as norm
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
     from repro_torch.kernels.ssm_gate import kernel as gate
     t0 = time.perf_counter()
     libs = build_all([kernel.LIBRARY, flash.LIBRARY, ssd.LIBRARY,
-                      conv.LIBRARY, gate.LIBRARY])
+                      conv.LIBRARY, gate.LIBRARY, norm.LIBRARY])
     dt = time.perf_counter() - t0
     for lib in libs:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -620,11 +647,13 @@ def launch_counts() -> dict:
     from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
+    from repro_torch.kernels.rms_norm import kernel as norm
     from repro_torch.kernels.ssm_gate import kernel as gate
-    # the conv's and the gate's counters are both named "fused" there
+    # the conv's, the gate's and the norm's counters are all named "fused"
+    # there
     return {**kernel.LAUNCHES, **flash.LAUNCHES, **ssd.LAUNCHES,
             **conv.LAUNCHES, **grouped.LAUNCHES,
-            "gate": gate.LAUNCHES["fused"]}
+            "gate": gate.LAUNCHES["fused"], "norm": norm.LAUNCHES["fused"]}
 
 
 def reset_launch_counts() -> None:
@@ -633,12 +662,14 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssm_conv import kernel as conv
+    from repro_torch.kernels.rms_norm import kernel as norm
     from repro_torch.kernels.ssm_gate import kernel as gate
     kernel.reset_launches()
     flash.reset_launches()
     ssd.reset_launches()
     conv.reset_launches()
     gate.reset_launches()
+    norm.reset_launches()
     grouped.reset_launches()
 
 
@@ -1499,10 +1530,12 @@ def serve_phase(dev, cfg=None):
             if launches["flash"] != cfg.n_layers \
                     or launches["flash_wgmma"] != cfg.n_layers \
                     or launches["single"] or launches["multi"] \
-                    or launches["ssd"]:
+                    or launches["ssd"] \
+                    or launches["norm"] != norm_launches(cfg):
                 raise RuntimeError(f"prefill launches {launches}, want "
-                                   f"flash=flash_wgmma={cfg.n_layers} and "
-                                   f"no other")
+                                   f"flash=flash_wgmma={cfg.n_layers}, "
+                                   f"norm={norm_launches(cfg)} and no "
+                                   f"other")
             fused_ms = device_times_ms(prefill, n=5)
             host_ms, enqueue_ms = host_times_ms(prefill)
             wall, busy, n_ops, _, by_name = device_busy(prefill)
@@ -1987,6 +2020,92 @@ def ssm_gate_phase(dev):
     return record
 
 
+def norm_launches(cfg) -> int:
+    """RMS-norm kernel launches in one `forward` of `cfg` on the card: one
+    a residual-stream norm (two a block, one a Mamba2 block, two a shared
+    attention block of the hybrid family), the final norm, and MLA's
+    latent norms (kv_a in every layer, q_a where there is a q_lora_rank);
+    none where the model's norm is not RMS."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        return n + 1
+    if cfg.family == "hybrid":
+        return n + 2 * (n // cfg.shared_attn_every) + 1
+    mla = 1 + bool(cfg.q_lora_rank) if cfg.attn == "mla" else 0
+    return (2 + mla) * n + 1
+
+
+def norm_bound_ms(rows, d, esize=2):
+    """The least time the card could take for one RMS norm of [rows, d]:
+    its bytes at HBM bandwidth (~5 instructions a value are ~2 a byte in
+    bf16, below the ridge): x read and the output written once, the
+    weight read once."""
+    return (2 * rows * d + d) * esize / HBM_BYTES_PER_S * 1e3
+
+
+def rms_norm_phase(dev):
+    """Phase 9e: the RMS-norm kernel through `ops.rms_norm` at
+    `NORM_CASES`, bf16 x of the residual stream's scale (a few outliers)
+    and a weight about 1: one launch a call, within one bf16 ulp of
+    `ref.rms_norm` on the same inputs; timed as the gate phase times ->
+    the kernel's record (mamba2's shape, every case under "cases")."""
+    from repro_torch.kernels.rms_norm import kernel, ops, ref
+    bf16, cases = torch.bfloat16, []
+    for b, t, d, model in NORM_CASES:
+        shape = f"{model} residual stream [{b}, {t}, {d}]"
+        gen = torch.Generator(dev).manual_seed(SEED)
+        with torch.no_grad():
+            x = 4 * torch.randn(b, t, d, generator=gen, device=dev)
+            x.view(-1)[::97] *= 30
+            x = x.to(bf16)
+            w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+            if not kernel.vector_ok(x, w):
+                raise RuntimeError(f"norm {shape}: x would be copied, not "
+                                   f"read in place")
+            run = lambda: ops.rms_norm(x, w, NORM_EPS)  # noqa: E731
+            plain = lambda: ref.rms_norm(x, w, NORM_EPS)  # noqa: E731
+            before = kernel.LAUNCHES["fused"]
+            out = run()
+            torch.cuda.synchronize()
+            if kernel.LAUNCHES["fused"] != before + 1:
+                raise RuntimeError(f"norm {shape}: launches {before} -> "
+                                   f"{kernel.LAUNCHES['fused']}, want one")
+            want = plain()
+            err = (out.float() - want.float()).abs()
+            over = float((err / _bf16_ulp(torch.maximum(
+                out.float().abs(), want.float().abs()))).max())
+            max_err, n_off = float(err.max()), int((err > 0).sum())
+            if over > 1 or not torch.isfinite(out).all():
+                raise RuntimeError(f"norm {shape}: {over:.3g} bf16 ulps "
+                                   f"from the eager chain, one allowed")
+            del out, want, err
+            ms = device_times_ms(run, cold=True)
+            plain_ms = device_times_ms(plain, cold=True)
+            _, (prof_ms, _, kern_n) = profile_kernels(
+                lambda: [run() for _ in range(N_TIMED)], (NORM_KERNEL_NAME,))
+        b_ms = norm_bound_ms(b * t, d)
+        if b_ms > ms:
+            raise RuntimeError(f"norm {shape}: {ms:.4f} ms is under its "
+                               f"bound {b_ms:.4f} ms")
+        say("norm", f"{shape}: one launch; max abs err {max_err:.3g} "
+            f"against the eager bf16 chain ({n_off} of {b * t * d} outputs "
+            f"off, {over:.3g} of the one-ulp bound); {ms:.4f} ms cold, "
+            f"profiler {_ms(prof_ms)} ms a launch (>= {kern_n} recorded); "
+            f"bound {b_ms:.5f} ms (bytes), at {100 * b_ms / ms:.1f}% of it; "
+            f"the eager chain {plain_ms:.4f} ms cold")
+        cases.append(dict(shape=shape, max_abs_err=max_err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms,
+                          bf16_ulp_share=over, profiler_ms=prof_ms))
+        del x, w
+        torch.cuda.empty_cache()
+    main = next(c for c in cases if SSM_ARCH in c["shape"])
+    return dict(name="rms_norm", route="cuda", source=NORM_SOURCE,
+                replaces=None, launches=None, bound_by="bytes",
+                library_ms=None, **main, cases=cases)
+
+
 def granite_config():
     """granite-4.0-h-small's `ModelConfig`, from the benchmark's config
     file as `portbench/harness.py::program` builds it."""
@@ -2140,7 +2259,7 @@ def granite_prefill(dev, cfg) -> dict:
             want = {**{k: 0 for k in launches}, "flash": n_attn,
                     "flash_wgmma": n_attn, "ssd": n_mamba,
                     "ssd_tc": n_mamba, "fused": n_mamba, "gate": n_mamba,
-                    "grouped": 3 * cfg.n_layers}
+                    "grouped": 3 * cfg.n_layers, "norm": norm_launches(cfg)}
             if launches != want:
                 raise RuntimeError(f"granite prefill launches {launches}, "
                                    f"want {want}")
@@ -2219,11 +2338,10 @@ def ssm_serve_phase(dev, cfg, tag, prefill_b, engine=True):
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "ssd": cfg.n_layers,
                     "ssd_tc": cfg.n_layers, "fused": cfg.n_layers,
-                    "gate": cfg.n_layers}
+                    "gate": cfg.n_layers, "norm": norm_launches(cfg)}
             if launches != want:
                 raise RuntimeError(f"prefill launches {launches}, want "
-                                   f"ssd=ssd_tc=fused=gate={cfg.n_layers} "
-                                   f"and no other")
+                                   f"{want}")
             if tuple(logits.shape) != (prefill_b, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"prefill: bad logits "
@@ -2477,11 +2595,10 @@ def family_phase(dev, arch: str) -> dict:
             torch.cuda.synchronize()
             launches = launch_counts()
             want = {**{k: 0 for k in launches}, "flash": want_flash,
-                    "flash_wgmma": want_flash}
+                    "flash_wgmma": want_flash, "norm": norm_launches(cfg)}
             if launches != want:
                 raise RuntimeError(f"{arch} prefill launches {launches}, "
-                                   f"want flash {want_flash} on "
-                                   f"wgmma and no other")
+                                   f"want {want}")
             if tuple(logits.shape) != (PREFILL_B, 1, cfg.vocab) \
                     or not torch.isfinite(logits).all():
                 raise RuntimeError(f"{arch} prefill: bad logits "
@@ -2540,10 +2657,11 @@ def family_phase(dev, arch: str) -> dict:
         reset_launch_counts()
         fused, plain, _, _ = _flash_vs_plain(model, cfg, vbatch, flash_ops)
         launches_v = launch_counts()
-        if launches_v != want:
+        # two prefills, the plain one without flash
+        want_v = {**want, "norm": 2 * want["norm"]}
+        if launches_v != want_v:
             raise RuntimeError(f"{arch} prefill from embeds launches "
-                               f"{launches_v}, want flash {want_flash} on "
-                               f"wgmma and no other")
+                               f"{launches_v}, want {want_v}")
         err = _logits_close(f"{arch} flash vs plain from embeds", fused,
                             plain)
         flat = {**vbatch, "positions3": torch.arange(
@@ -2642,7 +2760,7 @@ def family_phase(dev, arch: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(tag, f"{arch}: phase {time.perf_counter() - t_phase:.1f} s")
-    return launches["flash"]
+    return launches
 
 
 # The train phase: the port's training driver (`launch/train.py`) at full
@@ -3005,9 +3123,11 @@ def parallel_phase(dev) -> int:
             if launches["flash"] != cfg.n_layers \
                     or launches["flash_wgmma"] != cfg.n_layers \
                     or launches["single"] or launches["multi"] \
-                    or launches["ssd"]:
+                    or launches["ssd"] \
+                    or launches["norm"] != norm_launches(cfg):
                 raise RuntimeError(f"sharded prefill launches {launches}, "
-                                   f"want flash=flash_wgmma={cfg.n_layers}")
+                                   f"want flash=flash_wgmma={cfg.n_layers}, "
+                                   f"norm={norm_launches(cfg)}")
             want = run_plain()
             pre_err = _logits_close("sharded prefill", got, want)
             s_ms, s_enq = host_times_ms(run_sharded, n=3)
@@ -3102,6 +3222,7 @@ def main() -> int:
     granite_flash_case, records["moe_grouped"], granite = granite_phase(dev)
     records["flash_attention"]["granite_scaled"] = granite_flash_case
     records["ssm_gate"] = ssm_gate_phase(dev)
+    records["rms_norm"] = rms_norm_phase(dev)
     records["moe_grouped"].update(
         launches=granite["grouped"],
         launches_by_path={GRANITE_NAME: granite["grouped"]})
@@ -3117,9 +3238,13 @@ def main() -> int:
         GRANITE_NAME: granite["gate"]})
     by_path = {SERVE_ARCH: records["flash_attention"]["launches"],
                HYBRID_ARCH: 0, GRANITE_NAME: granite["flash"]}
+    norms = {SSM_ARCH: ssm["norm"], HYBRID_ARCH: hybrid["norm"],
+             GRANITE_NAME: granite["norm"]}
     for arch in FAMILY_FLASH:
-        by_path[arch] = family_phase(dev, arch)
+        launches = family_phase(dev, arch)
+        by_path[arch], norms[arch] = launches["flash"], launches["norm"]
     records["flash_attention"]["launches_by_path"] = by_path
+    records["rms_norm"].update(launches=ssm["norm"], launches_by_path=norms)
     train_phase(dev)
     by_path["parallel"] = parallel_phase(dev)
     say("done", f"{time.perf_counter() - t_start:.1f} s total on {smi}")

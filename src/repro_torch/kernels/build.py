@@ -11,7 +11,8 @@ the flags, so an edit rebuilds.  The compiler's register/spill report
 What every kernel wrapper (`kernels/<k>/kernel.py`) shares lives here too:
 `CudaLibrary.launch` (the call on PyTorch's current stream and its return
 code), `Launches` (the launch counters, behind one lock), `aligned` (the
-16-byte rule of TMA, `cp.async` and vector accesses) and the guards
+16-byte rule of TMA, `cp.async` and vector accesses), `fitting` (a copy
+of what breaks it) and the guards
 `cuda_only` and `forward_only`.  `needs_grad` is the one rule by which a
 Mamba2 op (`ssm_conv`, `ssd_scan`, `ssm_gate`) takes its plain version:
 while autograd records a gradient through an input, whatever the device,
@@ -141,6 +142,14 @@ def aligned(t, nbytes: int = 16, dims: Optional[Sequence[int]] = None,
         if shape[d] > 1 and (stride[d] <= 0 or stride[d] * size % nbytes):
             return False
     return True
+
+
+def fitting(t):
+    """`t` itself where `aligned`, else a fresh contiguous copy (the
+    allocator's blocks start 512-byte aligned)."""
+    if aligned(t):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def needs_grad(*tensors) -> bool:

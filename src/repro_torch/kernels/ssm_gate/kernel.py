@@ -18,7 +18,7 @@ from pathlib import Path
 import torch
 
 from ..build import (SM90A, CudaLibrary, Launches, aligned, cuda_only,
-                     forward_only)
+                     fitting, forward_only)
 
 DTYPES = (torch.bfloat16, torch.float32)
 CH = 8                     # channels a chunk (16 bytes of bf16)
@@ -106,12 +106,8 @@ def vector_ok(y, xh, z, out_norm) -> bool:
     return all(_fits(v) for v in (y, xh, z, out_norm))
 
 
-def _fitting(v):
-    """`v` itself where the kernel may read it in place, else a fresh
-    contiguous copy (the allocator's blocks start 512-byte aligned)."""
-    if _fits(v):
-        return v
-    return torch.empty(v.shape, dtype=v.dtype, device=v.device).copy_(v)
+#: `v` itself where the kernel may read it in place, else a contiguous copy
+_fitting = fitting
 
 
 def ssm_gate_fwd(y, xh, D, z, out_norm, *, eps: float, dtype):

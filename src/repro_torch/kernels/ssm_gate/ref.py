@@ -6,17 +6,9 @@ inputs; nothing here imports the model.
 """
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 
-
-def rms_norm(x, weight, eps: float):
-    """`models/layers.py::rms_norm`: the same operations in the same
-    order, so the same bits."""
-    dtype = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * weight.float()).to(dtype)
+from ..rms_norm.ref import rms_norm
 
 
 def gate_chain(y, xh, D, z, out_norm, eps: float, dtype):

@@ -22,6 +22,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils._pytree import tree_map
 
+from ..kernels.rms_norm import ops as norm_ops
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -104,11 +106,10 @@ def param_specs(model: nn.Module) -> Dict[str, Tuple]:
 
 # --------------------------------------------------------------------------
 def rms_norm(x, weight, eps=1e-5):
-    dtype = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(dtype)
+    """The RMS norm over x's last dim (`kernels/rms_norm/ops.py`): the
+    kernel for CUDA tensors, the eager float32 chain on the CPU and while
+    autograd records a gradient."""
+    return norm_ops.rms_norm(x, weight, eps)
 
 
 def layer_norm(x, weight, bias, eps=1e-5):

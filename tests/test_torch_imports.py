@@ -62,6 +62,8 @@ SLICE_MODULES = [
     "repro_torch.kernels.ssm_conv.ref", "repro_torch.kernels.ssm_conv.ops",
     "repro_torch.kernels.ssm_gate", "repro_torch.kernels.ssm_gate.kernel",
     "repro_torch.kernels.ssm_gate.ref", "repro_torch.kernels.ssm_gate.ops",
+    "repro_torch.kernels.rms_norm", "repro_torch.kernels.rms_norm.kernel",
+    "repro_torch.kernels.rms_norm.ref", "repro_torch.kernels.rms_norm.ops",
     "repro_torch.kernels.moe_grouped",
     "repro_torch.kernels.moe_grouped.kernel",
     "repro_torch.kernels.moe_grouped.ref",
